@@ -1,0 +1,195 @@
+"""Wrappers of the hand-written BSR SpMM kernels in ``csrc/bsr_spmm.cu``.
+
+``bsr_spmm``       — one worker-layer: blocks [NBR,K,bm,bn], cols [NBR,K],
+                     x [N,B] → y [NBR*bm, B].
+``bsr_spmm_fleet`` — the whole fleet in one launch: blocks [P,NBR,K,bm,bn],
+                     cols [P,NBR,K], counts [P,NBR], x [P,N,B]
+                     → y [P, NBR*bm, B]; row (p, r) stops at counts[p, r].
+
+Both compute ``clip(Σ_k blocks[.., k] @ x[cols[.., k]*bn : +bn] + bias, 0,
+clip)``.  A tensor on the CPU goes to the plain version in ``ref.py``; a
+CUDA tensor goes to the kernel, or the wrapper raises.  There is no fallback
+from one to the other.
+
+The kernels are compiled with ``nvcc`` for ``sm_90a`` at first use into a
+shared library with a plain C interface, under ``build/<hash of the
+sources and flags>/`` beside this file, and loaded with ``ctypes``.
+``LAUNCHES`` counts each kernel's launches (never the plain versions' calls),
+so a caller can show that a run went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.bsr_spmm.ref import bsr_spmm_fleet_ref, bsr_spmm_fused_ref
+
+__all__ = ["bsr_spmm", "bsr_spmm_fleet", "LAUNCHES", "MAX_BLOCK",
+           "load_library", "library_path"]
+
+LAUNCHES = {"bsr_spmm_fused": 0, "bsr_spmm_fleet": 0}
+MAX_BLOCK = 32  # largest bm and bn the kernels are written for
+
+_HERE = Path(__file__).resolve().parent
+_SOURCE = _HERE / "csrc" / "bsr_spmm.cu"
+_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_lib: Optional[ctypes.CDLL] = None
+_lib_lock = threading.Lock()
+
+
+def library_path() -> Path:
+    """Where the built library lives: keyed on the source bytes and the
+    compiler flags, so an edited source never loads a stale build."""
+    h = hashlib.sha256(_SOURCE.read_bytes())
+    h.update(" ".join(_NVCC_FLAGS).encode())
+    return _HERE / "build" / h.hexdigest()[:16] / "libbsr_spmm.so"
+
+
+def _nvcc() -> str:
+    home = (os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+            or "/usr/local/cuda")
+    nvcc = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(nvcc):
+        return nvcc
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH "
+                           "to build the BSR SpMM kernels")
+    return found
+
+
+def _build(so: Path) -> None:
+    """Compile into a temporary name and rename, so a concurrent build or an
+    interrupted one never leaves a half-written library under ``so``."""
+    so.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=so.parent)
+    os.close(fd)
+    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", tmp, str(_SOURCE)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    (so.parent / "nvcc.log").write_text(
+        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, so)
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (once per source hash) and load the kernels' shared library."""
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            so = library_path()
+            if not so.exists():
+                _build(so)
+            lib = ctypes.CDLL(str(so))
+            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            lib.bsr_spmm_fused_launch.argtypes = [p, p, p, p, i, i, i, i, i, i,
+                                                  f, f, p]
+            lib.bsr_spmm_fused_launch.restype = i
+            lib.bsr_spmm_fleet_launch.argtypes = [p, p, p, p, p, i, i, i, i, i,
+                                                  i, i, f, f, p]
+            lib.bsr_spmm_fleet_launch.restype = i
+            lib.bsr_spmm_error_string.argtypes = [i]
+            lib.bsr_spmm_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
+           device: torch.device) -> None:
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name} must have {ndim} dims, got shape {tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_block(bm: int, bn: int) -> None:
+    if not (1 <= bm <= MAX_BLOCK and 1 <= bn <= MAX_BLOCK):
+        raise ValueError(f"block shape ({bm}, {bn}) not supported: the kernels "
+                         f"take 1 <= bm, bn <= {MAX_BLOCK}")
+
+
+def _launch(fn_name: str, device: torch.device, *args) -> None:
+    lib = load_library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, fn_name)(*args, stream)
+    if err != 0:
+        msg = lib.bsr_spmm_error_string(err).decode()
+        raise RuntimeError(f"{fn_name} failed: CUDA error {err} ({msg})")
+
+
+def bsr_spmm(blocks: torch.Tensor, cols: torch.Tensor, x: torch.Tensor, *,
+             bias: float, clip: float = 32.0) -> torch.Tensor:
+    """One worker-layer on ``x``'s device (see the module docstring)."""
+    dev = x.device
+    _check("x", x, torch.float32, 2, dev)
+    _check("blocks", blocks, torch.float32, 4, dev)
+    _check("cols", cols, torch.int32, 2, dev)
+    nbr, k, bm, bn = blocks.shape
+    if tuple(cols.shape) != (nbr, k):
+        raise ValueError(f"cols shape {tuple(cols.shape)} != {(nbr, k)}")
+    _check_block(bm, bn)
+    if dev.type == "cpu":
+        return bsr_spmm_fused_ref(blocks, cols, x, bias, clip)
+    if dev.type != "cuda":
+        raise ValueError(f"bsr_spmm runs on cpu or cuda, not {dev.type}")
+    n, b = x.shape
+    y = torch.empty((nbr * bm, b), dtype=torch.float32, device=dev)
+    if y.numel() == 0:
+        return y
+    _launch("bsr_spmm_fused_launch", dev, blocks.data_ptr(), cols.data_ptr(),
+            x.data_ptr(), y.data_ptr(), nbr, k, bm, bn, n, b,
+            float(bias), float(clip))
+    LAUNCHES["bsr_spmm_fused"] += 1
+    return y
+
+
+def bsr_spmm_fleet(blocks: torch.Tensor, cols: torch.Tensor,
+                   counts: torch.Tensor, x: torch.Tensor, *, bias: float,
+                   clip: float = 32.0) -> torch.Tensor:
+    """The whole fleet's layer on ``x``'s device (see the module docstring)."""
+    dev = x.device
+    _check("x", x, torch.float32, 3, dev)
+    _check("blocks", blocks, torch.float32, 5, dev)
+    _check("cols", cols, torch.int32, 3, dev)
+    _check("counts", counts, torch.int32, 2, dev)
+    p, nbr, k, bm, bn = blocks.shape
+    if tuple(cols.shape) != (p, nbr, k):
+        raise ValueError(f"cols shape {tuple(cols.shape)} != {(p, nbr, k)}")
+    if tuple(counts.shape) != (p, nbr):
+        raise ValueError(f"counts shape {tuple(counts.shape)} != {(p, nbr)}")
+    if x.shape[0] != p:
+        raise ValueError(f"x has {x.shape[0]} workers, blocks {p}")
+    _check_block(bm, bn)
+    if dev.type == "cpu":
+        return bsr_spmm_fleet_ref(blocks, cols, counts, x, bias, clip)
+    if dev.type != "cuda":
+        raise ValueError(f"bsr_spmm_fleet runs on cpu or cuda, not {dev.type}")
+    n, b = x.shape[1:]
+    y = torch.empty((p, nbr * bm, b), dtype=torch.float32, device=dev)
+    if y.numel() == 0:
+        return y
+    _launch("bsr_spmm_fleet_launch", dev, blocks.data_ptr(), cols.data_ptr(),
+            counts.data_ptr(), x.data_ptr(), y.data_ptr(), p, nbr, k, bm, bn,
+            n, b, float(bias), float(clip))
+    LAUNCHES["bsr_spmm_fleet"] += 1
+    return y
