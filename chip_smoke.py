@@ -4,19 +4,36 @@
 
 Run from the root of a checkout.  Phases, each printed as it ends:
 
-1. card: the card's name and power limit, then the BSR kernels' build
-   (``nvcc`` for ``sm_90a``, from the sources in the checkout);
-2. kernels against their plain PyTorch versions on the card, at the main
-   path's shapes and data (GraphChallenge N = 65536, batch 128, 32x32 blocks,
-   K up to 32; the fleet of P = 64 workers that ``run_fsi`` stacks), plus a
-   ragged batch and a zero-count worker; tolerance 1e-5 (summation order);
-   the fleet kernel must equal the per-worker kernel bit for bit;
-3. the main path: ``run_fsi`` with the ``torch-bsr`` backend on the queue and
+1. card: the card's name and power limit, then both kernel libraries'
+   builds, started together (``nvcc`` for ``sm_90a``, one per source, from
+   the sources in the checkout);
+2. the BSR kernels against their plain PyTorch versions on the card, at the
+   FSI path's shapes and data (GraphChallenge N = 65536, batch 128, 32x32
+   blocks, K up to 32; the fleet of P = 64 workers that ``run_fsi``
+   stacks), plus a ragged batch and a zero-count worker; tolerance 1e-5
+   (summation order); the fleet kernel must equal the per-worker kernel bit
+   for bit;
+3. the FSI path: ``run_fsi`` with the ``torch-bsr`` backend on the queue and
    object channels at P = 64 and on the serial channel, on an 8-layer cut of
    the N = 65536 GraphChallenge net; each output is held to 1e-4 of
    ``dense_inference``, and FLOPs, messages and raw exchange bytes to exact
    equality with a ``numpy-fast`` run (cost within 5%);
-4. one JSON line with each kernel's time, launches on the main path, bound,
+4. the split-KV decode kernel against its plain version on the card: the
+   serving path's shape (B 8, H 16, KV 8, D 128, S 640) in bf16 (2e-2) and
+   fp32 (1e-5) at cache lengths 0, 1, 63, 64, 65, 544 and 640; G = 1 and
+   G = 4 at D 64; one long-cache layer (B 32, KV 8, S 32768, D 128, bf16);
+5. the serving path: ``ServingEngine(get_config("internlm2-1.8b"))`` at
+   full width (24 layers, bf16 params drawn on the card from seed 0,
+   ``torch-splitk``) generates 32 tokens for 8 prompts of 512 tokens; every
+   layer of every step must launch the decode kernel; then, teacher-forced
+   on those tokens, the kernel's plain version run as a backend on the card
+   must give every step's logits within 3e-2 on all but 1% of them, and
+   90% of the same greedy next tokens (the reference's plain backends
+   ``dense-ref`` and ``chunked-lse``, which round the probabilities to
+   bf16 at other points, are measured beside it); and
+   ``torch-splitk`` and ``dense-ref`` on fp32 copies of the params must give
+   identical greedy tokens and logits within 1e-4;
+6. one JSON line with each kernel's time, launches on its path, bound,
    plain-version time and one library call's time.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
@@ -31,6 +48,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -41,12 +59,30 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 N, BATCH, P, LAYERS, SEED = 65536, 128, 64, 8, 0
 TOL = dict(rtol=1e-5, atol=1e-5)
 E2E_TOL = dict(rtol=1e-4, atol=1e-4)
-# (HBM bytes/s, fp32 FLOP/s outside the tensor cores), NVIDIA data sheets
-PEAKS = {"H100 SXM": (3.35e12, 67e12), "H100 PCIe": (2.0e12, 51e12),
-         "H100 NVL": (3.9e12, 60e12)}
-KERNEL_SOURCE = "src/repro_torch/kernels/bsr_spmm/csrc/bsr_spmm.cu"
+DECODE_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
+              torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+ARCH, SERVE_BATCH, PROMPT, NEW, NEW_FP32 = "internlm2-1.8b", 8, 512, 32, 8
+DECODE_SHAPE = (SERVE_BATCH, 16, 8, 640, 128)   # B, H, KV, S, D of the path
+LONG_BATCH, LONG_S = 32, 32768                  # one long-cache layer
+# bf16 logits, teacher-forced, kernel vs its plain version: the reference's
+# model-level tolerance, which 24 bf16 layers break on a few entries (one
+# rounding flip grows to ~0.06 in a logit), so at most 1% of a step's
+# logits may fall outside it, and 90% of the greedy next tokens must agree
+LOGITS_TOL = dict(rtol=3e-2, atol=3e-2)
+LOGITS_OUTSIDE_MAX, AGREE_MIN = 0.01, 0.9
+# (HBM bytes/s, fp32 FLOP/s outside the tensor cores, dense bf16 tensor-core
+# FLOP/s), NVIDIA data sheets
+PEAKS = {"H100 SXM": (3.35e12, 67e12, 989e12),
+         "H100 PCIe": (2.0e12, 51e12, 756e12),
+         "H100 NVL": (3.9e12, 60e12, 835e12)}
+SOURCES = {"bsr_spmm_fused": "src/repro_torch/kernels/bsr_spmm/csrc/bsr_spmm.cu",
+           "bsr_spmm_fleet": "src/repro_torch/kernels/bsr_spmm/csrc/bsr_spmm.cu",
+           "decode_attention": ("src/repro_torch/kernels/decode_attention/csrc/"
+                                "decode_attention.cu")}
 REPLACES = {"bsr_spmm_fused": "src/repro/kernels/bsr_spmm/bsr_spmm.py:180",
-            "bsr_spmm_fleet": "src/repro/kernels/bsr_spmm/bsr_spmm.py:125"}
+            "bsr_spmm_fleet": "src/repro/kernels/bsr_spmm/bsr_spmm.py:125",
+            "decode_attention":
+                "src/repro/kernels/decode_attention/decode_attention.py:59"}
 
 
 def log(msg: str) -> None:
@@ -144,11 +180,25 @@ def bound(blocks, cols, counts, b: int, peaks):
             bytes_, flops)
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA card visible; the port's smoke run needs one",
-              file=sys.stderr)
-        return 1
+def reset_counts() -> None:
+    from repro_torch.kernels.bsr_spmm import ops as bsr_ops
+    from repro_torch.kernels.decode_attention import ops as decode_ops
+
+    for counts in (bsr_ops.LAUNCHES, decode_ops.LAUNCHES):
+        for key in counts:
+            counts[key] = 0
+
+
+def read_counts() -> dict:
+    from repro_torch.kernels.bsr_spmm import ops as bsr_ops
+    from repro_torch.kernels.decode_attention import ops as decode_ops
+
+    return {**bsr_ops.LAUNCHES, **decode_ops.LAUNCHES}
+
+
+def fsi_phases(dev, peaks, card):
+    """Phases 2 and 3: the BSR kernels against their plain versions, then
+    ``run_fsi`` through them.  Returns (timing, launches, max errors)."""
     from repro_torch.core.backends import TorchBsrBackend
     from repro_torch.core.fsi import prepare_worker_artifacts
     from repro_torch.core.partitioner import partition_network
@@ -159,26 +209,6 @@ def main() -> int:
     from repro_torch.faas.simulator import run_fsi
     from repro_torch.kernels.bsr_spmm import ops, ref
 
-    dev = torch.device("cuda")
-    t_start = time.time()
-
-    # ---- 1. card + build -------------------------------------------------
-    card = card_line()
-    log(card)
-    name = card.split(",")[0].strip()
-    kind, peaks = peaks_for(name)
-    log(f"[card] {name} x{torch.cuda.device_count()}; torch {torch.__version__} "
-        f"cuda {torch.version.cuda}; peaks of the {kind} data sheet: "
-        f"{peaks[0] / 1e12} TB/s HBM, {peaks[1] / 1e12} TFLOP/s fp32")
-    t = time.time()
-    ops.load_library()
-    log(f"[build] bsr_spmm.cu -> {ops.library_path().parent.name}: "
-        f"{time.time() - t:.2f} s")
-    for line in (ops.library_path().parent / "nvcc.log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
-
-    # ---- 2. kernels against their plain versions ------------------------
     log(f"[config] GraphChallenge N={N}, batch {BATCH}, blocks 32x32, P={P}, "
         f"{LAYERS} layers of 120 (depth cut for the time limit; width, block "
         f"shape and batch panel are the real ones; 8 layers cover every "
@@ -290,7 +320,7 @@ def main() -> int:
     del y_p, fy_p
     torch.cuda.empty_cache()
 
-    # ---- 3. the main path ------------------------------------------------
+    # ---- 3. the FSI path -------------------------------------------------
     dense = dense_inference(net, x0)
     launches = {key: 0 for key in ops.LAUNCHES}
     runs = [("queue", dict(P=P, channel="queue", partition=partition)),
@@ -300,13 +330,14 @@ def main() -> int:
         t = time.time()
         want = run_fsi(net, x0, compute_backend="numpy-fast", **kw)
         t_np = time.time() - t
-        for key in ops.LAUNCHES:
-            ops.LAUNCHES[key] = 0
+        reset_counts()
         t = time.time()
         got = run_fsi(net, x0, compute_backend=TorchBsrBackend(device="cuda"),
                       **kw)
         t_gpu = time.time() - t
-        counts_run = dict(ops.LAUNCHES)
+        counts_run = read_counts()
+        check(counts_run.pop("decode_attention") == 0,
+              f"{ch}: the decode kernel ran on the FSI path")
         out = got.output
         check(out.shape == (N, BATCH) and bool(np.isfinite(out).all()),
               f"{ch}: output shape {out.shape} or non-finite values")
@@ -333,15 +364,421 @@ def main() -> int:
             f"{got.raw_exchange_bytes} (equal to numpy-fast); cost "
             f"{got.cost.total:.6e} vs {want.cost.total:.6e}; launches {counts_run}")
     for key, v in launches.items():
-        check(v > 0, f"{key} was not launched on the main path")
-    log(f"[memory] peak device allocation {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-
-    # ---- 4. kernels line -------------------------------------------------
+        check(v > 0, f"{key} was not launched on the FSI path")
+    log(f"[memory] FSI phases: peak device allocation "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     errs = {"bsr_spmm_fused": max(err_fused), "bsr_spmm_fleet": max(err_fleet)}
-    kernels = [dict(name=k, route="cuda", source=KERNEL_SOURCE,
+    return timing, launches, errs
+
+
+# ---------------------------------------------------------------------------
+# 4. the decode kernel against its plain version
+# ---------------------------------------------------------------------------
+
+
+def decode_bound(B, H, KV, L, D, dtype, peaks):
+    """Least time for one decode call: q, the first ``L`` rows of K and V,
+    out and lse each moved once over HBM, against 4·B·H·L·D FLOPs over the
+    peak for the inputs' type (bf16 tensor cores, or fp32)."""
+    e = torch.tensor([], dtype=dtype).element_size()
+    bytes_ = 2 * B * H * D * e + 2 * B * KV * L * D * e + B * H * 4
+    flops = 4.0 * B * H * L * D
+    peak = peaks[2] if dtype == torch.bfloat16 else peaks[1]
+    t_bytes, t_ops = bytes_ / peaks[0] * 1e3, flops / peak * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            bytes_, flops)
+
+
+def sdpa_call(q, k, v, L):
+    """One ``scaled_dot_product_attention`` over the first ``L`` cache rows,
+    the KV heads shared by their G query heads.  A yardstick only; the port
+    never calls it."""
+    F = torch.nn.functional
+    qs, ks, vs = q[:, :, None], k[:, :, :L], v[:, :, :L]
+    try:
+        F.scaled_dot_product_attention(qs, ks, vs, enable_gqa=True)
+
+        def call():
+            return F.scaled_dot_product_attention(qs, ks, vs,
+                                                  enable_gqa=True)[:, :, 0]
+    except TypeError:  # a torch without enable_gqa: repeat the KV heads
+        g = q.shape[1] // k.shape[1]
+        kr = ks.repeat_interleave(g, dim=1)
+        vr = vs.repeat_interleave(g, dim=1)
+
+        def call():
+            return F.scaled_dot_product_attention(qs, kr, vr)[:, :, 0]
+    return call
+
+
+def decode_phase(dev, peaks, card):
+    """The kernel against its plain version, then its times.  Returns
+    (timing, max error)."""
+    from repro_torch.kernels.decode_attention import ops, ref
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def operands(B, H, KV, S, D, dtype):
+        return [torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+                for shape in ((B, H, D), (B, KV, S, D), (B, KV, S, D))]
+
+    def held(name, q, k, v, lens):
+        worst = 0.0
+        tol = DECODE_TOL[q.dtype]
+        for L in lens:
+            lt = torch.tensor([L], dtype=torch.int32, device=dev)
+            out, lse = ops.decode_mha(q, k, v, lt)
+            want, want_lse = ref.decode_attention_ref(q, k, v, lt)
+            torch.cuda.synchronize()
+            err = (out.float() - want.float()).abs().max().item()
+            lse_err = (lse - want_lse).abs().max().item()
+            torch.testing.assert_close(out.float(), want.float(), **tol,
+                                       msg=lambda m: f"{name} L={L}: {m}")
+            torch.testing.assert_close(lse, want_lse, **tol,
+                                       msg=lambda m: f"{name} L={L} lse: {m}")
+            worst = max(worst, err)
+            log(f"  {name} cache_len {L}: max_abs_err out {err:.3e}, "
+                f"lse {lse_err:.3e} (tolerance rtol=atol={tol['atol']})")
+        return worst
+
+    B, H, KV, S, D = DECODE_SHAPE
+    tile = 64  # the kernel's keys per block iteration at D 128 bf16
+    lens = [0, 1, tile - 1, tile, tile + 1, PROMPT + NEW, S]
+    errs, main = [], {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = operands(B, H, KV, S, D, dtype)
+        errs.append(held(f"main B{B} H{H} KV{KV} S{S} D{D} {dtype}", q, k, v,
+                         lens))
+        main[dtype] = (q, k, v)
+    for H_, KV_ in ((8, 8), (16, 4)):  # G = 1 and G = 4, D 64
+        q, k, v = operands(4, H_, KV_, 300, 64, torch.bfloat16)
+        errs.append(held(f"G{H_ // KV_} D64 bf16", q, k, v, [0, 1, 129, 300]))
+        q, k, v = operands(4, H_, KV_, 300, 64, torch.float32)
+        errs.append(held(f"G{H_ // KV_} D64 fp32", q, k, v, [0, 1, 129, 300]))
+
+    def times(q, k, v, L, tag, reps):
+        lt = torch.tensor([L], dtype=torch.int32, device=dev)
+        Bq, Hq, Dq = q.shape
+        ms = time_ms(lambda: ops.decode_mha(q, k, v, lt), reps=reps)
+        plain_ms = time_ms(lambda: ref.decode_attention_ref(q, k, v, lt),
+                           reps=reps)
+        lib_ms = lib_err = None
+        try:
+            call = sdpa_call(q, k, v, L)
+            lib_err = (call().float() - ops.decode_mha(q, k, v, lt)[0].float()
+                       ).abs().max().item()
+            lib_ms = time_ms(call, reps=reps)
+        except (RuntimeError, NotImplementedError, ValueError) as e:
+            log(f"  {tag}: library call refused: {type(e).__name__}: {e}")
+        b_ms, b_by, nbytes, flops = decode_bound(Bq, Hq, k.shape[1], L, Dq,
+                                                 q.dtype, peaks)
+        log(f"[time] decode_attention {tag}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, library "
+            f"{lib_ms if lib_ms is None else f'{lib_ms:.4f}'} ms (max |library"
+            f" - kernel| {lib_err}), bound {b_ms:.4f} ms by {b_by} "
+            f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP; "
+            f"{nbytes / ms / 1e6:.1f} GB/s achieved) on {card}")
+        return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                    bound_by=b_by)
+
+    timing = times(*main[torch.bfloat16], PROMPT + NEW,
+                   f"serving shape B{B} H{H} KV{KV} S{S} D{D} bf16 "
+                   f"cache_len {PROMPT + NEW}", reps=20)
+    del main
+    # one long-cache layer: 4.29 GB of K and V
+    LB, LS = LONG_BATCH, LONG_S
+    q, k, v = operands(LB, H, KV, LS, D, torch.bfloat16)
+    errs.append(held(f"long B{LB} KV{KV} S{LS} D{D} bf16", q, k, v, [LS]))
+    long = times(q, k, v, LS, f"long cache B{LB} H{H} KV{KV} S{LS} D{D} bf16",
+                 reps=10)
+    timing["long_cache"] = dict(shape=[LB, H, KV, LS, D], **long)
+    del q, k, v
+    torch.cuda.empty_cache()
+    return timing, max(errs)
+
+
+# ---------------------------------------------------------------------------
+# 5. the serving path
+# ---------------------------------------------------------------------------
+
+
+def serve_phase(dev, card):
+    """``ServingEngine`` at internlm2-1.8b's full width through the decode
+    kernel, then against the plain backend.  Returns the decode kernel's
+    launches on the path."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = get_config(ARCH)
+    t = time.time()
+    engine = ServingEngine(cfg, seed=SEED)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in engine.params.parameters())
+    log(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV heads, d_head "
+        f"{cfg.d_head}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} padded to "
+        f"{cfg.padded_vocab()}; {n_params / 1e9:.3f} B params in "
+        f"{engine.params.embed.dtype} drawn on the card from seed {SEED} in "
+        f"{time.time() - t:.1f} s; backend {engine.attn_backend.name}")
+    rng = np.random.default_rng(1)
+    prompts = rng.integers(0, cfg.vocab_size,
+                           size=(SERVE_BATCH, PROMPT)).astype(np.int32)
+    max_len = PROMPT + NEW
+    engine.generate(prompts[:, :16], max_new_tokens=2)  # warm-up
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = engine.generate(prompts, max_new_tokens=NEW)
+    t_first = time.perf_counter() - t
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {"decode_attention": cfg.n_layers * NEW, "bsr_spmm_fused": 0,
+            "bsr_spmm_fleet": 0}
+    check(launches == want, f"serving launches {launches}, want {want}")
+    V = cfg.padded_vocab()
+    check(res.tokens.shape == (SERVE_BATCH, NEW)
+          and bool(((res.tokens >= 0) & (res.tokens < V)).all()),
+          f"tokens {res.tokens.shape} out of range")
+    check(res.prefill_logits.shape == (SERVE_BATCH, V)
+          and bool(np.isfinite(res.prefill_logits).all()),
+          "last step's logits not finite")
+    log(f"[serve] generate(B {SERVE_BATCH}, prompt {PROMPT}, {NEW} new): "
+        f"{t_first:.3f} s host wall (first timed run); decode kernel launches "
+        f"{launches['decode_attention']} = {cfg.n_layers} x {NEW}; peak device "
+        f"memory {peak / 1e9:.2f} GB; first tokens {res.tokens[0, :8].tolist()}")
+
+    def wall(n_new, reps=3):
+        ts = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engine.generate(prompts, max_new_tokens=n_new)
+            ts.append(time.perf_counter() - t0)
+        return statistics.median(ts)
+
+    t_prefill, t_gen = wall(0), wall(NEW)
+    step = (t_gen - t_prefill) / NEW
+    log(f"[serve] prefill {t_prefill * 1e3:.2f} ms (median of 3 generate(..., "
+        f"0)); generate {t_gen * 1e3:.2f} ms (median of 3); decode "
+        f"{step * 1e3:.3f} ms/step, {SERVE_BATCH / step:.1f} tokens/s; "
+        f"end to end {SERVE_BATCH * NEW / t_gen:.1f} tokens/s, on {card}")
+    profile_decode(engine, prompts, step * 1e3)
+
+    # Teacher-forced on the kernel run's tokens: the kernel against its plain
+    # version on the card (the same math, p kept in fp32), and the
+    # reference's two plain backends beside it, which round the
+    # probabilities to bf16 before p @ v at other points.
+    names = ("plain", "dense-ref", "chunked-lse")
+    others = {n: ServingEngine(cfg, params=engine.params,
+                               attn_backend=PlainSplitKOnCard() if n == "plain"
+                               else n) for n in names}
+    batch = {"tokens": torch.as_tensor(prompts, dtype=torch.int64, device=dev)}
+    lk, ck = engine.model.prefill(engine.params, batch, max_len)
+    caches = {}
+    for n, e in others.items():
+        lo, caches[n] = e.model.prefill(e.params, batch, max_len)
+        check(torch.equal(lk, lo), f"prefill logits differ under {n}")
+    toks = torch.as_tensor(res.tokens, dtype=torch.int64, device=dev)
+    pairs = [("kernel", n) for n in names] + [("dense-ref", "chunked-lse")]
+    stats = {pr: dict(max_abs=0.0, outside=0.0, rel_l2=0.0) for pr in pairs}
+    agree = {n: 0 for n in names}
+    replay = 0
+    for t in range(NEW):
+        tok = toks[:, t:t + 1]
+        lk, ck = engine.model.decode_step(engine.params, tok, ck)
+        lo = {"kernel": lk}
+        for n, e in others.items():
+            lo[n], caches[n] = e.model.decode_step(e.params, tok, caches[n])
+        for a, b in pairs:
+            d = (lo[a] - lo[b]).abs()
+            st = stats[(a, b)]
+            st["max_abs"] = max(st["max_abs"], d.max().item())
+            bound = LOGITS_TOL["atol"] + LOGITS_TOL["rtol"] * lo[b].abs()
+            st["outside"] = max(st["outside"], (d > bound).float().mean().item())
+            st["rel_l2"] = max(st["rel_l2"], (d.norm() / lo[b].norm()).item())
+        outside = stats[("kernel", "plain")]["outside"]
+        check(outside <= LOGITS_OUTSIDE_MAX,
+              f"step {t}: {outside:.3%} of the logits differ from the plain "
+              f"version's by more than rtol=atol=3e-2")
+        if t + 1 < NEW:
+            replay += int((lk[:, 0].argmax(-1) == toks[:, t + 1]).sum())
+            for n in names:
+                agree[n] += int((lo[n][:, 0].argmax(-1) == toks[:, t + 1]).sum())
+    n_next = SERVE_BATCH * (NEW - 1)
+    check(replay == n_next, f"the kernel's teacher-forced replay picked "
+                            f"{replay} of {n_next} tokens again")
+    check(np.array_equal(lk[:, 0].cpu().numpy(), res.prefill_logits),
+          "replayed last-step logits differ from generate's")
+    check(agree["plain"] >= AGREE_MIN * n_next,
+          f"the plain version's greedy next tokens agree on only "
+          f"{agree['plain']} of {n_next}")
+    log(f"[serve] bf16 teacher-forced, {NEW} steps, logits std "
+        f"{lk.float().std().item():.3f} (last step); worst step of each pair: "
+        "max |diff|, share of logits outside rtol=atol=3e-2, |diff|_2/|logits|_2")
+    for (a, b), st in stats.items():
+        log(f"  {a} vs {b}: {st['max_abs']:.3e}, {st['outside']:.4%}, "
+            f"{st['rel_l2']:.3e}")
+    log(f"  greedy next tokens equal to the kernel run's, of {n_next}: "
+        + ", ".join(f"{n} {agree[n]}" for n in names)
+        + f" (kernel vs plain must be <= {LOGITS_OUTSIDE_MAX:.0%} outside, "
+        f">= {AGREE_MIN:.0%} agreeing)")
+    del ck, caches, lk, lo, others
+
+    # fp32 copies of the same params: identical greedy tokens
+    p32 = transformer.Transformer(cfg, dtype=torch.float32, device=dev)
+    for dst, src in zip(p32.parameters(), engine.params.parameters()):
+        dst.copy_(src)
+    del engine
+    torch.cuda.empty_cache()
+    outs = {}
+    for name in ("torch-splitk", "dense-ref"):
+        outs[name] = ServingEngine(cfg, params=p32, attn_backend=name).generate(
+            prompts, max_new_tokens=NEW_FP32)
+    a, b = outs["torch-splitk"], outs["dense-ref"]
+    check(np.array_equal(a.tokens, b.tokens),
+          f"fp32 tokens differ: {a.tokens} vs {b.tokens}")
+    err32 = float(np.abs(a.prefill_logits - b.prefill_logits).max())
+    np.testing.assert_allclose(a.prefill_logits, b.prefill_logits, rtol=1e-4,
+                               atol=1e-4)
+    log(f"[serve] fp32 params, {NEW_FP32} new tokens: torch-splitk and "
+        f"dense-ref tokens identical; last-step max |logits diff| {err32:.3e} "
+        f"(tolerance 1e-4)")
+    return launches["decode_attention"]
+
+
+def profile_decode(engine, prompts, step_ms: float, steps: int = 4) -> None:
+    """Device time by kernel over ``steps`` decode steps after a prefill,
+    from ``torch.profiler``; says so where the profiler saw no device
+    time.  ``step_ms`` is the unprofiled step time, for the busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = engine.device
+    batch = {"tokens": torch.as_tensor(prompts, dtype=torch.int64, device=dev)}
+    logits, cache = engine.model.prefill(engine.params, batch,
+                                         prompts.shape[1] + NEW)
+    token = logits[:, -1:].argmax(dim=-1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(steps):
+            logits, cache = engine.model.decode_step(engine.params, token, cache)
+            token = logits[:, -1:].argmax(dim=-1)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3 / steps
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    total = sum(dev_us(e) for e in rows) / 1e3 / steps
+    if total <= 0:
+        log("[profile] no device time in the profiler's trace: not measured")
+        return
+    rows.sort(key=dev_us, reverse=True)
+    dec = sum(dev_us(e) for e in rows if "decode_attention" in e.key) / 1e3 / steps
+    n_kernels = sum(e.count for e in rows) / steps
+    log(f"[profile] {steps} decode steps (B {prompts.shape[0]}, cache "
+        f"{prompts.shape[1]}+): per step {total:.3f} ms device time over "
+        f"{n_kernels:.0f} kernels, {wall_ms:.2f} ms host wall under the "
+        f"profiler; device busy {100 * total / step_ms:.1f}% of the "
+        f"unprofiled {step_ms:.2f} ms step; decode kernel {dec:.4f} ms "
+        f"({100 * dec / total:.2f}% of device time, "
+        f"{100 * dec / step_ms:.2f}% of the step)")
+    for e in rows[:10]:
+        log(f"  {dev_us(e) / 1e3 / steps:9.4f} ms/step  {e.count / steps:6.1f}"
+            f" x/step  {e.key[:80]}")
+
+
+class PlainSplitKOnCard:
+    """The decode kernel's plain version (``ref.decode_attention_ref``: the
+    TPU kernel's math, p kept in fp32) as an attention backend on the
+    card's tensors, with the kernel backend's cache layout.  Used only to
+    hold the kernel to it."""
+
+    name = "torch-splitk-plain"
+
+    def __init__(self):
+        from repro_torch.core.backends import TorchSplitKAttention
+
+        # the padding rule does not depend on the device
+        self.layout_of = TorchSplitKAttention(device="cpu")
+
+    def cache_layout(self, max_len):
+        return self.layout_of.cache_layout(max_len)
+
+    def decode(self, q, k_cache, v_cache, cache_len):
+        from repro_torch.kernels.decode_attention import ref
+
+        B, _, H, D = q.shape
+        out, _ = ref.decode_attention_ref(q.reshape(B, H, D), k_cache,
+                                          v_cache, cache_len)
+        return out[:, None]
+
+
+# ---------------------------------------------------------------------------
+
+
+def build_all():
+    """Start every kernel's ``nvcc`` together; log each build's time and
+    what ptxas said of registers and spills."""
+    from repro_torch.kernels.bsr_spmm import ops as bsr_ops
+    from repro_torch.kernels.decode_attention import ops as decode_ops
+
+    def build(mod):
+        t = time.time()
+        mod.load_library()
+        return time.time() - t
+
+    mods = {"bsr_spmm.cu": bsr_ops, "decode_attention.cu": decode_ops}
+    t = time.time()
+    with ThreadPoolExecutor(len(mods)) as pool:
+        took = dict(zip(mods, pool.map(build, mods.values())))
+    for name, mod in mods.items():
+        log(f"[build] {name} -> {mod.library_path().parent.name}: "
+            f"{took[name]:.2f} s")
+        for line in (mod.library_path().parent / "nvcc.log").read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas: {line.strip()}")
+    log(f"[build] both libraries: {time.time() - t:.2f} s")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card visible; the port's smoke run needs one",
+              file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    t_start = time.time()
+
+    # ---- 1. card + build -------------------------------------------------
+    card = card_line()
+    log(card)
+    name = card.split(",")[0].strip()
+    kind, peaks = peaks_for(name)
+    log(f"[card] {name} x{torch.cuda.device_count()}; torch {torch.__version__} "
+        f"cuda {torch.version.cuda}; peaks of the {kind} data sheet: "
+        f"{peaks[0] / 1e12} TB/s HBM, {peaks[1] / 1e12} TFLOP/s fp32, "
+        f"{peaks[2] / 1e12} TFLOP/s bf16")
+    build_all()
+
+    timing, launches, errs = fsi_phases(dev, peaks, card)
+    timing["decode_attention"], errs["decode_attention"] = decode_phase(
+        dev, peaks, card)
+    launches["decode_attention"] = serve_phase(dev, card)
+
+    # ---- 6. kernels line -------------------------------------------------
+    kernels = [dict(name=k, route="cuda", source=SOURCES[k],
                     replaces=REPLACES[k], launches=launches[k],
                     max_abs_err=errs[k], **timing[k])
-               for k in ("bsr_spmm_fused", "bsr_spmm_fleet")]
+               for k in ("bsr_spmm_fused", "bsr_spmm_fleet", "decode_attention")]
     log(f"[total] {time.time() - t_start:.1f} s")
     print(card_line())
     print(json.dumps({"kernels": kernels}))

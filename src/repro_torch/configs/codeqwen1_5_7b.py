@@ -1,0 +1,22 @@
+"""codeqwen1.5-7b [dense]: qwen1.5 arch (QKV bias).
+
+32L d_model=4096 32H (kv=32) d_ff=13440 vocab=92416
+[hf:Qwen/CodeQwen1.5-7B; hf].
+"""
+
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="codeqwen1.5-7b",
+    family="dense",
+    n_layers=32,
+    d_model=4096,
+    n_heads=32,
+    n_kv_heads=32,
+    d_head=128,
+    d_ff=13440,
+    vocab_size=92416,
+    qkv_bias=True,
+    rope_theta=1_000_000.0,
+    source="hf:Qwen/CodeQwen1.5-7B",
+)

@@ -1,0 +1,24 @@
+"""minicpm-2b [dense]: llama-like arch trained with the WSD schedule.
+
+40L d_model=2304 36H (kv=36) d_ff=5760 vocab=122753 [arXiv:2404.06395; hf].
+The WSD (warmup-stable-decay) schedule is wired into the trainer.
+"""
+
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="minicpm-2b",
+    family="dense",
+    n_layers=40,
+    d_model=2304,
+    n_heads=36,
+    n_kv_heads=36,
+    d_head=64,
+    d_ff=5760,
+    vocab_size=122753,
+    rope_theta=10_000.0,
+    tie_embeddings=True,
+    pad_heads_to=48,
+    lr_schedule="wsd",
+    source="arXiv:2404.06395",
+)

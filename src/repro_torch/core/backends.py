@@ -1,4 +1,5 @@
-"""Pluggable compute backends for the FSI per-layer SpMM.
+"""Pluggable backends: the FSI per-layer SpMM (``compute``) and the
+serving engine's per-step decode attention (``attention``).
 
 Every simulated Lambda runs the same inner loop per layer: a sparse
 matrix–panel product ``z = W_local @ x_buf`` followed by the GraphChallenge
@@ -24,18 +25,25 @@ Backends only change how the arithmetic is executed — FLOP charging, message
 accounting and memory high-water marks are computed by the caller from the
 CSR shard itself, so billed cost is identical across backends by
 construction (asserted in ``tests/test_torch_fsi.py``).
+
+The attention backends (``DenseRefAttention``, ``ChunkedLseAttention``,
+``TorchSplitKAttention``) sit below, mirroring the reference's
+decode-attention registry; ``torch-splitk``, the hand-written CUDA kernel
+of ``kernels/decode_attention``, is the attention kind's default.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Protocol, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Protocol, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from repro_torch.core.sparse import CSRMatrix, bsr_from_csr
 from repro_torch.data.graphchallenge import ACTIVATION_CLIP, relu_bias_threshold
+from repro_torch.kernels.decode_attention.ops import decode_mha
+from repro_torch.models.attention import decode_attention, decode_attention_dense
 
 __all__ = [
     "ComputeBackend",
@@ -43,6 +51,15 @@ __all__ = [
     "NumpyFastBackend",
     "TorchBsrBackend",
     "BACKEND_NAMES",
+    "KVCacheLayout",
+    "cache_layout_for",
+    "AttentionBackend",
+    "DenseRefAttention",
+    "ChunkedLseAttention",
+    "TorchSplitKAttention",
+    "SPLITK_BLOCK_K_TABLE",
+    "ATTENTION_BACKEND_NAMES",
+    "attention_backend_for",
     "get_backend",
 ]
 
@@ -282,6 +299,188 @@ class TorchBsrBackend:
 
 
 # ---------------------------------------------------------------------------
+# decode-attention backends (serving per-step hot path)
+# ---------------------------------------------------------------------------
+
+
+def _require_device(name: str, device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{name} runs on a CUDA device by default and none is available; "
+            f"pass device='cpu' to run its plain PyTorch version on the CPU")
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{name} runs on cuda or cpu, not {device}")
+    return device
+
+
+@dataclasses.dataclass(frozen=True)
+class KVCacheLayout:
+    """Decode KV-cache layout: ``[..., B, KV, S, D]`` with the sequence
+    capacity ``S`` padded up to a ``block_k`` multiple at prefill, so the
+    per-step decode reads the buffers as they are.  ``block_k`` is the
+    padding quantum: 1 for the plain backends, the split-KV table's entry
+    for ``torch-splitk`` (the CUDA kernel itself takes any capacity)."""
+
+    block_k: int = 1
+
+    def padded_len(self, max_len: int) -> int:
+        """Cache capacity for a requested ``max_len``: the next ``block_k``
+        multiple (identity when ``block_k == 1``)."""
+        bk = max(1, int(self.block_k))
+        return -(-max(int(max_len), 1) // bk) * bk
+
+    def check_capacity(self, seq_cap: int) -> None:
+        if seq_cap % max(1, int(self.block_k)):
+            raise ValueError(
+                f"KV cache capacity {seq_cap} is not a multiple of "
+                f"block_k={self.block_k}; pad the cache at prefill with "
+                f"KVCacheLayout.padded_len (ServingEngine does this)")
+
+
+def cache_layout_for(backend, max_len: int) -> KVCacheLayout:
+    """The :class:`KVCacheLayout` a backend instance wants for a cache of
+    capacity ``max_len`` (identity layout for duck-typed externals)."""
+    fn = getattr(backend, "cache_layout", None)
+    return fn(max_len) if fn is not None else KVCacheLayout()
+
+
+class AttentionBackend(Protocol):
+    """Single-token decode attention over a preallocated KV cache.
+
+    Caches arrive as ``[B, KV, S, D]`` with ``S`` already padded per
+    ``cache_layout(max_len)``.  ``cache_len`` is an int or an int32 tensor
+    on the cache's device, so a decode loop never syncs with the host.
+    """
+
+    name: str
+
+    def cache_layout(self, max_len: int) -> KVCacheLayout:
+        """Layout (padding rule) this backend needs for capacity ``max_len``."""
+        ...
+
+    def decode(self, q: torch.Tensor, k_cache: torch.Tensor,
+               v_cache: torch.Tensor, cache_len: Any) -> torch.Tensor:
+        """``q [B, 1, H, D]`` → attention output ``[B, 1, H, D]`` in
+        ``q.dtype``."""
+        ...
+
+    def decode_partial(self, q: torch.Tensor, k_cache: torch.Tensor,
+                       v_cache: torch.Tensor, cache_len: Any
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Split-KV form: ``(out [B,1,H,D] normalized partial,
+        lse [B,1,H] fp32)`` for an lse-weighted combine."""
+        ...
+
+
+class DenseRefAttention:
+    """``decode_attention_dense``: the whole masked cache in one softmax,
+    the parity oracle for the registry."""
+
+    name = "dense-ref"
+
+    @property
+    def state_key(self) -> str:
+        return self.name
+
+    def cache_layout(self, max_len: int) -> KVCacheLayout:
+        return KVCacheLayout(block_k=1)
+
+    def decode(self, q, k_cache, v_cache, cache_len):
+        return decode_attention_dense(q, k_cache, v_cache, cache_len)
+
+    def decode_partial(self, q, k_cache, v_cache, cache_len):
+        return decode_attention_dense(q, k_cache, v_cache, cache_len,
+                                      return_lse=True)
+
+
+class ChunkedLseAttention:
+    """Streaming KV-chunk scan with running (max, sum, acc): bounded
+    memory for very long caches; the chunk size is a tile knob that leaves
+    the numerics unchanged."""
+
+    name = "chunked-lse"
+
+    def __init__(self, kv_chunk: int = 2048):
+        self.kv_chunk = kv_chunk
+
+    @property
+    def state_key(self) -> str:
+        return f"{self.name}:kc{self.kv_chunk}"
+
+    def cache_layout(self, max_len: int) -> KVCacheLayout:
+        return KVCacheLayout(block_k=1)
+
+    def decode(self, q, k_cache, v_cache, cache_len):
+        return decode_attention(q, k_cache, v_cache, cache_len=cache_len,
+                                kv_chunk=self.kv_chunk).to(q.dtype)
+
+    def decode_partial(self, q, k_cache, v_cache, cache_len):
+        return decode_attention(q, k_cache, v_cache, cache_len=cache_len,
+                                kv_chunk=self.kv_chunk, return_lse=True)
+
+
+# (padded cache length upper bound, block_k): the reference's split-KV
+# table, kept only as the cache-padding rule so that cache capacities equal
+# the reference's.  It sets no tile of the CUDA kernel.
+SPLITK_BLOCK_K_TABLE: Tuple[Tuple[Optional[int], int], ...] = (
+    (256, 64),
+    (1024, 128),
+    (4096, 256),
+    (None, 512),
+)
+
+
+class TorchSplitKAttention:
+    """Split-KV flash decode through the hand-written CUDA kernel of
+    ``kernels/decode_attention`` (``ops.decode_mha``).
+
+    The cache arrives as ``[B, KV, S, D]`` with ``S`` padded to the
+    ``block_k`` of :data:`SPLITK_BLOCK_K_TABLE` (or the pinned
+    ``block_k``); positions at or beyond ``cache_len`` are masked in the
+    kernel.  ``device="cuda"`` (the default) raises where no CUDA device is
+    present; ``device="cpu"`` is for the CPU tests, where ``decode_mha``
+    runs the kernel's plain PyTorch version on CPU tensors.  The kernel is
+    chosen by the tensors' device, and nothing falls back from one to the
+    other.
+    """
+
+    name = "torch-splitk"
+
+    def __init__(self, block_k: Optional[int] = None, device="cuda"):
+        self.device = _require_device(self.name, device)
+        self.block_k = block_k
+
+    @property
+    def state_key(self) -> str:
+        return f"{self.name}:bk{self.block_k}:{self.device}"
+
+    def block_k_for(self, seq_cap: int) -> int:
+        if self.block_k is not None:
+            return self.block_k
+        for bound, bk in SPLITK_BLOCK_K_TABLE:
+            if bound is None or seq_cap <= bound:
+                return bk
+        raise AssertionError("unreachable")  # pragma: no cover
+
+    def cache_layout(self, max_len: int) -> KVCacheLayout:
+        # The table's bounds are multiples of their own block_k, so
+        # padded_len never crosses into a bucket with another block size.
+        return KVCacheLayout(block_k=self.block_k_for(max(int(max_len), 1)))
+
+    def decode(self, q, k_cache, v_cache, cache_len):
+        out, _ = self.decode_partial(q, k_cache, v_cache, cache_len)
+        return out.to(q.dtype)
+
+    def decode_partial(self, q, k_cache, v_cache, cache_len):
+        S = k_cache.shape[2]
+        self.cache_layout(S).check_capacity(S)  # no silent per-step re-pad
+        B, _, H, D = q.shape
+        out, lse = decode_mha(q.reshape(B, H, D), k_cache, v_cache, cache_len)
+        return out[:, None], lse[:, None]
+
+
+# ---------------------------------------------------------------------------
 # registry
 # ---------------------------------------------------------------------------
 
@@ -293,10 +492,19 @@ _REGISTRY: Dict[str, type] = {
 }
 BACKEND_NAMES = tuple(_REGISTRY)
 
+_ATTENTION_REGISTRY: Dict[str, type] = {
+    DenseRefAttention.name: DenseRefAttention,
+    ChunkedLseAttention.name: ChunkedLseAttention,
+    TorchSplitKAttention.name: TorchSplitKAttention,
+}
+ATTENTION_BACKEND_NAMES = tuple(_ATTENTION_REGISTRY)
+
 # kind → (registry, default name, label, duck-type method an instance of the
 # kind must expose — catches a wrong-kind instance at resolution time)
 _KINDS = {
     "compute": (_REGISTRY, "torch-bsr", "compute backend", "apply"),
+    "attention": (_ATTENTION_REGISTRY, "torch-splitk", "attention backend",
+                  "decode"),
 }
 
 _LEGACY = object()  # sentinel: one-argument get_backend(name) = compute
@@ -305,10 +513,12 @@ _LEGACY = object()  # sentinel: one-argument get_backend(name) = compute
 def get_backend(kind, name=_LEGACY):
     """Resolve a backend by ``(kind, name)``.
 
-    ``get_backend("compute", "numpy-fast")``.  ``name=None`` resolves to the
-    kind's default, ``torch-bsr`` on the CUDA device, which raises where no
-    CUDA device is present.  Instances pass through unchanged, so callers can
-    hand in a pre-configured backend (e.g. ``TorchBsrBackend(device="cpu")``).
+    ``get_backend("compute", "numpy-fast")`` / ``get_backend("attention",
+    "dense-ref")``.  ``name=None`` resolves to the kind's default,
+    ``torch-bsr`` and ``torch-splitk``, both on the CUDA device, which raise
+    where no CUDA device is present.  Instances pass through unchanged, so
+    callers can hand in a pre-configured backend (e.g.
+    ``TorchBsrBackend(device="cpu")``).
 
     The one-argument form ``get_backend(name_or_instance)`` means a compute
     backend.
@@ -335,3 +545,13 @@ def get_backend(kind, name=_LEGACY):
             f"unknown {label} {name!r}; options: {tuple(registry)}"
         ) from None
     return cls()
+
+
+def attention_backend_for(name: Union[str, Any, None],
+                          device="cuda") -> Any:
+    """The attention backend that serves on ``device``: a name (``None``
+    for the default, ``torch-splitk``) resolves with ``torch-splitk`` built
+    for ``device``; instances pass through as in :func:`get_backend`."""
+    if name is None or name == TorchSplitKAttention.name:
+        return TorchSplitKAttention(device=device)
+    return get_backend("attention", name)

@@ -21,17 +21,12 @@ so a caller can show that a run went through the kernels.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import threading
 from pathlib import Path
 from typing import Optional
 
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels.bsr_spmm.ref import bsr_spmm_fleet_ref, bsr_spmm_fused_ref
 
 __all__ = ["bsr_spmm", "bsr_spmm_fleet", "LAUNCHES", "MAX_BLOCK",
@@ -41,70 +36,36 @@ LAUNCHES = {"bsr_spmm_fused": 0, "bsr_spmm_fleet": 0}
 MAX_BLOCK = 32  # largest bm and bn the kernels are written for
 
 _HERE = Path(__file__).resolve().parent
-_SOURCE = _HERE / "csrc" / "bsr_spmm.cu"
-_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _lib: Optional[ctypes.CDLL] = None
-_lib_lock = threading.Lock()
+_SOURCE = _HERE / "csrc" / "bsr_spmm.cu"
 
 
 def library_path() -> Path:
     """Where the built library lives: keyed on the source bytes and the
     compiler flags, so an edited source never loads a stale build."""
-    h = hashlib.sha256(_SOURCE.read_bytes())
-    h.update(" ".join(_NVCC_FLAGS).encode())
-    return _HERE / "build" / h.hexdigest()[:16] / "libbsr_spmm.so"
+    return _build.library_path(_SOURCE, _HERE / "build", "libbsr_spmm.so")
 
 
-def _nvcc() -> str:
-    home = (os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-            or "/usr/local/cuda")
-    nvcc = os.path.join(home, "bin", "nvcc")
-    if os.path.exists(nvcc):
-        return nvcc
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH "
-                           "to build the BSR SpMM kernels")
-    return found
-
-
-def _build(so: Path) -> None:
-    """Compile into a temporary name and rename, so a concurrent build or an
-    interrupted one never leaves a half-written library under ``so``."""
-    so.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=so.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", tmp, str(_SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (so.parent / "nvcc.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, so)
+def _configure(lib: ctypes.CDLL) -> None:
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.bsr_spmm_fused_launch.argtypes = [p, p, p, p, i, i, i, i, i, i,
+                                          f, f, p]
+    lib.bsr_spmm_fused_launch.restype = i
+    lib.bsr_spmm_fleet_launch.argtypes = [p, p, p, p, p, i, i, i, i, i,
+                                          i, i, f, f, p]
+    lib.bsr_spmm_fleet_launch.restype = i
+    lib.bsr_spmm_error_string.argtypes = [i]
+    lib.bsr_spmm_error_string.restype = ctypes.c_char_p
 
 
 def load_library() -> ctypes.CDLL:
-    """Build (once per source hash) and load the kernels' shared library."""
+    """Build (once per source hash) and load the kernels' shared library.
+    The first call hashes the source; later calls return the loaded
+    library without touching the disk."""
     global _lib
-    with _lib_lock:
-        if _lib is None:
-            so = library_path()
-            if not so.exists():
-                _build(so)
-            lib = ctypes.CDLL(str(so))
-            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.bsr_spmm_fused_launch.argtypes = [p, p, p, p, i, i, i, i, i, i,
-                                                  f, f, p]
-            lib.bsr_spmm_fused_launch.restype = i
-            lib.bsr_spmm_fleet_launch.argtypes = [p, p, p, p, p, i, i, i, i, i,
-                                                  i, i, f, f, p]
-            lib.bsr_spmm_fleet_launch.restype = i
-            lib.bsr_spmm_error_string.argtypes = [i]
-            lib.bsr_spmm_error_string.restype = ctypes.c_char_p
-            _lib = lib
-        return _lib
+    if _lib is None:
+        _lib = _build.load(_SOURCE, library_path(), _configure)
+    return _lib
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,

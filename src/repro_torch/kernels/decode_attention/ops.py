@@ -1,0 +1,136 @@
+"""Wrapper of the hand-written split-KV decode kernel in
+``csrc/decode_attention.cu``.
+
+``decode_mha(q [B,H,D], k_cache, v_cache [B,KV,S,D], cache_len)``
+→ ``(out [B,H,D] in q.dtype, lse [B,H] fp32)``: one token's attention over
+the cache's first ``cache_len`` positions, the G = H / KV query heads of a
+KV head sharing it.  ``cache_len`` is an int or an int32 tensor of one
+element on the tensors' device; the kernel reads it there, so a decode loop
+passes the same tensor arithmetic every step without a host sync.
+
+A tensor on the CPU goes to the plain version in ``ref.py``; a CUDA tensor
+goes to the kernel, or the wrapper raises.  There is no fallback from one
+to the other.  The kernel is compiled with ``nvcc`` for ``sm_90a`` at first
+use (``kernels/_build.py``) and loaded with ``ctypes``.  ``LAUNCHES`` counts
+the kernel's launches (never the plain version's calls).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+__all__ = ["decode_mha", "LAUNCHES", "GROUPS", "HEAD_DIMS", "load_library",
+           "library_path"]
+
+LAUNCHES = {"decode_attention": 0}
+GROUPS = (1, 2, 4, 8)       # query heads per KV head the kernel is built for
+HEAD_DIMS = (32, 64, 128)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+_HERE = Path(__file__).resolve().parent
+_lib: Optional[ctypes.CDLL] = None
+_SOURCE = _HERE / "csrc" / "decode_attention.cu"
+
+
+def library_path() -> Path:
+    return _build.library_path(_SOURCE, _HERE / "build",
+                               "libdecode_attention.so")
+
+
+def _configure(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.decode_attention_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
+                                            i, ctypes.c_float, p]
+    lib.decode_attention_launch.restype = i
+    lib.decode_attention_error_string.argtypes = [i]
+    lib.decode_attention_error_string.restype = ctypes.c_char_p
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (once per source hash) and load the kernel's shared library.
+    The first call hashes the source; later calls return the loaded
+    library without touching the disk."""
+    global _lib
+    if _lib is None:
+        _lib = _build.load(_SOURCE, library_path(), _configure)
+    return _lib
+
+
+def _check(q, k_cache, v_cache):
+    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
+        if t.dtype not in _DTYPES:
+            raise TypeError(f"{name} must be float32 or bfloat16, got {t.dtype}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} is {t.dtype}, q is {q.dtype}")
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if q.dim() != 3 or k_cache.dim() != 4:
+        raise ValueError(f"q must be [B,H,D] and the caches [B,KV,S,D], got "
+                         f"{tuple(q.shape)} and {tuple(k_cache.shape)}")
+    B, H, D = q.shape
+    if k_cache.shape != v_cache.shape:
+        raise ValueError(f"k_cache {tuple(k_cache.shape)} != v_cache "
+                         f"{tuple(v_cache.shape)}")
+    kb, kv, s, kd = k_cache.shape
+    if kb != B or kd != D or kv < 1 or H % kv or s < 1:
+        raise ValueError(f"cache {tuple(k_cache.shape)} does not fit q "
+                         f"{tuple(q.shape)}: need [B, KV, S>=1, D] with KV | H")
+
+
+def _len_tensor(cache_len, device: torch.device) -> torch.Tensor:
+    if isinstance(cache_len, torch.Tensor):
+        if cache_len.dtype != torch.int32 or cache_len.numel() != 1:
+            raise TypeError(f"cache_len must be an int32 tensor of one "
+                            f"element, got {cache_len.dtype} {tuple(cache_len.shape)}")
+        if cache_len.device != device:
+            raise ValueError(f"cache_len is on {cache_len.device}, q on {device}")
+        return cache_len
+    return torch.tensor([int(cache_len)], dtype=torch.int32, device=device)
+
+
+def decode_mha(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+               cache_len):
+    """One token's split-KV attention on ``q``'s device (see the module
+    docstring)."""
+    _check(q, k_cache, v_cache)
+    dev = q.device
+    lens = _len_tensor(cache_len, dev)
+    if dev.type == "cpu":
+        return decode_attention_ref(q, k_cache, v_cache, lens)
+    if dev.type != "cuda":
+        raise ValueError(f"decode_mha runs on cpu or cuda, not {dev.type}")
+    B, H, D = q.shape
+    KV, S = k_cache.shape[1], k_cache.shape[2]
+    G = H // KV
+    if G not in GROUPS or D not in HEAD_DIMS:
+        raise ValueError(f"decode_mha's kernel takes G = H/KV in {GROUPS} and "
+                         f"D in {HEAD_DIMS}, got G={G}, D={D}")
+    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned for the kernel")
+    out = torch.empty_like(q)
+    lse = torch.empty((B, H), dtype=torch.float32, device=dev)
+    lib = load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.decode_attention_launch(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            lens.data_ptr(), out.data_ptr(), lse.data_ptr(), B, KV, G, S, D,
+            _DTYPES[q.dtype], 1.0 / math.sqrt(D), stream)
+    if err != 0:
+        msg = lib.decode_attention_error_string(err).decode()
+        raise RuntimeError(f"decode_attention_launch failed: CUDA error {err} "
+                           f"({msg})")
+    LAUNCHES["decode_attention"] += 1
+    return out, lse

@@ -1,0 +1,220 @@
+"""Shared model layers in PyTorch.
+
+Conventions:
+* parameters live in ``nn.Module``s in the reference's layouts
+  (``wq [d, H, Dh]``, ``wo [H, Dh, d]``, ``embed [V, d]``, ``wi_gate
+  [d, f]``), so the products here mirror its einsums one for one; every
+  initializer takes an explicit ``torch.Generator``;
+* activations flow as ``[batch, seq, d_model]`` in the parameters' dtype
+  (bf16 by default) with fp32 accumulation inside every product
+  (:func:`matmul_acc`, the counterpart of ``preferred_element_type``) and
+  fp32 math in norms, RoPE and activations.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+PARAM_DTYPE = torch.bfloat16
+ACC_DTYPE = torch.float32
+
+__all__ = ["PARAM_DTYPE", "ACC_DTYPE", "matmul_acc", "dense_init",
+           "embed_init", "empty_param", "rms_norm", "rope_frequencies", "apply_rope",
+           "Attention", "Mlp", "init_attention", "init_mlp", "mlp",
+           "qkv_project", "out_project", "embed_tokens", "unembed"]
+
+
+# ---------------------------------------------------------------------------
+# products
+# ---------------------------------------------------------------------------
+
+
+def matmul_acc(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x [..., K] @ w [K, N]`` → fp32 ``[..., N]``, accumulated in fp32.
+
+    On a CUDA card a bf16 product goes to cuBLAS with an fp32 output
+    (``torch.mm(..., out_dtype=torch.float32)``), so the weights are read
+    once in bf16 and the result is never rounded to bf16.  On the CPU the
+    operands are widened to fp32 first: a product of two bf16 values is
+    exact in fp32, so both give the reference's
+    ``preferred_element_type=float32`` product up to summation order.
+    """
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if x2.dtype == ACC_DTYPE and w.dtype == ACC_DTYPE:
+        y = x2 @ w
+    elif x2.is_cuda:
+        y = torch.mm(x2, w, out_dtype=ACC_DTYPE)
+    else:
+        y = x2.to(ACC_DTYPE) @ w.to(ACC_DTYPE)
+    return y.reshape(*lead, w.shape[-1])
+
+
+# ---------------------------------------------------------------------------
+# initializers
+# ---------------------------------------------------------------------------
+
+
+def dense_init(generator: torch.Generator, shape, in_axis_size: Optional[int] = None,
+               dtype=PARAM_DTYPE) -> torch.Tensor:
+    """Normal(0, 1/fan_in) in fp32, cast to ``dtype``, on the generator's
+    device."""
+    fan_in = in_axis_size if in_axis_size is not None else shape[0]
+    scale = 1.0 / np.sqrt(max(1, fan_in))
+    x = torch.randn(shape, generator=generator, device=generator.device,
+                    dtype=torch.float32)
+    return (x * scale).to(dtype)
+
+
+def embed_init(generator: torch.Generator, shape, dtype=PARAM_DTYPE) -> torch.Tensor:
+    x = torch.randn(shape, generator=generator, device=generator.device,
+                    dtype=torch.float32)
+    return (x * 0.02).to(dtype)
+
+
+def empty_param(shape, dtype, device) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                        requires_grad=False)
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    x32 = x.to(ACC_DTYPE)
+    var = x32.square().mean(dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * weight.to(ACC_DTYPE)).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# rotary position embeddings
+# ---------------------------------------------------------------------------
+
+
+def rope_frequencies(d_head: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, d_head, 2, dtype=ACC_DTYPE, device=device) / d_head
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(
+    x: torch.Tensor,            # [B, S, H, D]
+    positions: torch.Tensor,    # [B, S] or [S]
+    theta: float,
+) -> torch.Tensor:
+    d = x.shape[-1]
+    freqs = rope_frequencies(d, theta, device=x.device)       # [D/2]
+    if positions.dim() == 1:
+        positions = positions[None, :]
+    angles = positions[..., None].to(ACC_DTYPE) * freqs       # [B, S, D/2]
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.to(ACC_DTYPE).chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# feed-forward (SwiGLU)
+# ---------------------------------------------------------------------------
+
+
+class Mlp(nn.Module):
+    def __init__(self, d_model: int, d_ff: int, dtype=PARAM_DTYPE, device="cpu"):
+        super().__init__()
+        self.wi_gate = empty_param((d_model, d_ff), dtype, device)
+        self.wi_up = empty_param((d_model, d_ff), dtype, device)
+        self.wo = empty_param((d_ff, d_model), dtype, device)
+
+
+def init_mlp(module: Mlp, generator: torch.Generator) -> Mlp:
+    d_model, d_ff = module.wi_gate.shape
+    dt = module.wi_gate.dtype
+    module.wi_gate.copy_(dense_init(generator, (d_model, d_ff), dtype=dt))
+    module.wi_up.copy_(dense_init(generator, (d_model, d_ff), dtype=dt))
+    module.wo.copy_(dense_init(generator, (d_ff, d_model), in_axis_size=d_ff,
+                               dtype=dt))
+    return module
+
+
+def mlp(params: Mlp, x: torch.Tensor) -> torch.Tensor:
+    gate = matmul_acc(x, params.wi_gate)
+    up = matmul_acc(x, params.wi_up)
+    h = (torch.nn.functional.silu(gate) * up).to(x.dtype)
+    return matmul_acc(h, params.wo).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention (GQA) — projections here; score computation in attention.py
+# ---------------------------------------------------------------------------
+
+
+class Attention(nn.Module):
+    def __init__(self, d_model: int, n_heads: int, n_kv_heads: int,
+                 d_head: int, qkv_bias: bool = False, dtype=PARAM_DTYPE,
+                 device="cpu"):
+        super().__init__()
+        self.wq = empty_param((d_model, n_heads, d_head), dtype, device)
+        self.wk = empty_param((d_model, n_kv_heads, d_head), dtype, device)
+        self.wv = empty_param((d_model, n_kv_heads, d_head), dtype, device)
+        self.wo = empty_param((n_heads, d_head, d_model), dtype, device)
+        if qkv_bias:
+            self.bq = empty_param((n_heads, d_head), dtype, device)
+            self.bk = empty_param((n_kv_heads, d_head), dtype, device)
+            self.bv = empty_param((n_kv_heads, d_head), dtype, device)
+        else:
+            self.bq = self.bk = self.bv = None
+
+
+def init_attention(module: Attention, generator: torch.Generator) -> Attention:
+    q_in, n_heads, d_head = module.wq.shape
+    n_kv = module.wk.shape[1]
+    dt = module.wq.dtype
+    module.wq.copy_(dense_init(generator, (q_in, n_heads, d_head), q_in, dt))
+    module.wk.copy_(dense_init(generator, (q_in, n_kv, d_head), q_in, dt))
+    module.wv.copy_(dense_init(generator, (q_in, n_kv, d_head), q_in, dt))
+    module.wo.copy_(dense_init(generator, (n_heads, d_head, module.wo.shape[-1]),
+                               n_heads * d_head, dt))
+    for b in (module.bq, module.bk, module.bv):
+        if b is not None:
+            b.zero_()
+    return module
+
+
+def qkv_project(params: Attention, x: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    out = []
+    for w, b in ((params.wq, params.bq), (params.wk, params.bk),
+                 (params.wv, params.bv)):
+        d, h, k = w.shape
+        y = matmul_acc(x, w.reshape(d, h * k)).reshape(*x.shape[:-1], h, k)
+        if b is not None:  # the bias joins in fp32, before the cast
+            y = y + b.to(ACC_DTYPE)
+        out.append(y.to(x.dtype))
+    return out[0], out[1], out[2]
+
+
+def out_project(params: Attention, attn_out: torch.Tensor, dtype) -> torch.Tensor:
+    h, k, d = params.wo.shape
+    o = attn_out.reshape(*attn_out.shape[:-2], h * k)
+    return matmul_acc(o, params.wo.reshape(h * k, d)).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# embeddings / unembedding
+# ---------------------------------------------------------------------------
+
+
+def embed_tokens(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    return torch.nn.functional.embedding(tokens, table)
+
+
+def unembed(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Logits in fp32 from an fp32-accumulated product — [B, S, V]."""
+    return matmul_acc(x, table.t())

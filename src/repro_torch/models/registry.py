@@ -1,0 +1,64 @@
+"""Uniform model API over the families the port has.
+
+``get_model(cfg)`` returns a :class:`ModelApi` with init / forward /
+prefill / decode_step — the entry point the serving engine uses.  The
+``dense`` family is ported; every other family raises and names the
+ROADMAP.md item that ports it.  ``loss_fn`` waits for training (Queue 1
+item 8) and ``cache_seq_axes`` for continuous batching (item 6).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.backends import cache_layout_for, get_backend
+from repro_torch.models import transformer
+
+__all__ = ["ModelApi", "get_model"]
+
+_NOT_PORTED = {
+    "vlm": "ROADMAP.md Queue 1 item 4 (its vlm half)",
+    "moe": "ROADMAP.md Queue 1 item 5",
+    "ssm": "ROADMAP.md Queue 1 item 5",
+    "hybrid": "ROADMAP.md Queue 1 item 5",
+    "encdec": "ROADMAP.md Queue 1 item 5",
+}
+
+
+@dataclasses.dataclass
+class ModelApi:
+    cfg: ModelConfig
+    init: Callable[[torch.Generator], transformer.Transformer]
+    forward: Callable[..., torch.Tensor]
+    prefill: Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
+    decode_step: Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
+
+
+def get_model(cfg: ModelConfig, attn_backend=None) -> ModelApi:
+    """Build the family's :class:`ModelApi`.
+
+    ``attn_backend`` — :class:`repro_torch.core.backends.AttentionBackend`
+    name or instance used by every decode step (``None`` → the attention
+    kind's default, ``torch-splitk``).  Resolved once here; its
+    :class:`KVCacheLayout` is derived from ``max_len`` at prefill.
+    """
+    if cfg.family != "dense":
+        where = _NOT_PORTED.get(cfg.family, "no ROADMAP item")
+        raise NotImplementedError(
+            f"family {cfg.family!r} ({cfg.name}) is not in repro_torch yet: "
+            f"{where} ports it")
+    attn = get_backend("attention", attn_backend)
+    return ModelApi(
+        cfg=cfg,
+        init=lambda generator: transformer.init(generator, cfg),
+        forward=lambda p, b: transformer.forward(p, b["tokens"], cfg),
+        prefill=lambda p, b, max_len: transformer.prefill(
+            p, b["tokens"], cfg, max_len,
+            layout=cache_layout_for(attn, max_len)),
+        decode_step=lambda p, t, c: transformer.decode_step(
+            p, t, c, cfg, attn_backend=attn),
+    )

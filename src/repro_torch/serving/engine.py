@@ -1,0 +1,131 @@
+"""Batched serving engine: prefill + greedy decode loop.
+
+Prompts are prefilled once, then decoded step by step with the KV cache,
+as in the reference's device engine.  The engine runs on a CUDA card
+unless constructed with ``device="cpu"``, and everything it launches runs
+on that device: the attention backend defaults to ``torch-splitk``, the
+hand-written split-KV kernel, and the generated tokens stay on the device
+until the loop ends.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.backends import (
+    KVCacheLayout,
+    attention_backend_for,
+    cache_layout_for,
+)
+from repro_torch.models.registry import get_model
+from repro_torch.models.transformer import Transformer
+
+__all__ = ["GenerationResult", "ServingEngine"]
+
+
+@dataclasses.dataclass
+class GenerationResult:
+    tokens: np.ndarray           # [B, max_new]
+    prefill_logits: np.ndarray   # [B, vocab]: the last step's logits
+    steps: int
+
+
+class ServingEngine:
+    def __init__(self, cfg: ModelConfig, params: Optional[Transformer] = None,
+                 seed: int = 0, attn_backend=None, max_len_hint: int = 0,
+                 engine: str = "device", device="cuda"):
+        """``attn_backend``: decode-attention backend name or instance
+        (``repro_torch.core.backends``).  ``None`` is ``torch-splitk`` on
+        ``device``; ``"auto"`` asks the router for a
+        :class:`repro_torch.serving.router.DecodePlan` for ``device``'s
+        type and ``max_len_hint``.
+
+        ``params``: a :class:`Transformer` (see
+        ``transformer.params_from_arrays``); ``None`` draws random bf16
+        weights on ``device`` from a ``torch.Generator`` seeded with
+        ``seed``.
+
+        On ``"cuda"`` the matmuls accumulate in full fp32 as the reference
+        does: the engine switches TF32 and reduced-precision bf16
+        reductions off (``torch.backends.cuda.matmul.allow_tf32`` and
+        ``allow_bf16_reduced_precision_reduction``)."""
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "ServingEngine runs on a CUDA device by default and none is "
+                "available; pass device='cpu' to serve on the CPU")
+        if self.device.type not in ("cuda", "cpu"):
+            raise ValueError(f"ServingEngine runs on cuda or cpu, not {device!r}")
+        if engine == "fabric":
+            raise NotImplementedError(
+                "engine='fabric' (the LM pipeline over the serverless fabric) "
+                "is not in repro_torch yet: ROADMAP.md Queue 1 item 7")
+        if engine != "device":
+            raise ValueError(f"unknown engine {engine!r}")
+        if self.device.type == "cuda":
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+        self.cfg = cfg
+        if attn_backend == "auto":
+            from repro_torch.serving.router import route_decode_plan
+
+            attn_backend = route_decode_plan(
+                cfg, max_len=max_len_hint or None,
+                platform=self.device.type).attn_backend
+        self.attn_backend = attention_backend_for(attn_backend, self.device)
+        self.model = get_model(cfg, attn_backend=self.attn_backend)
+        if params is None:
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            params = self.model.init(gen)
+        self.params = params
+
+    def cache_layout(self, max_len: int) -> KVCacheLayout:
+        """The layout the engine's caches use for a given capacity: prefill
+        allocates ``[L, B, KV, padded_len(max_len), D]`` buffers with it."""
+        return cache_layout_for(self.attn_backend, max_len)
+
+    def generate(
+        self,
+        prompts: np.ndarray,            # [B, S_prompt] int32
+        max_new_tokens: int = 8,
+        extra: Optional[Dict[str, np.ndarray]] = None,
+        max_len: Optional[int] = None,
+    ) -> GenerationResult:
+        """Greedy generation.  ``max_len`` overrides the cache capacity
+        (default: exactly what the batch needs).  ``extra`` (frontend
+        embeddings) belongs to the vlm and encdec families, which are not
+        ported yet."""
+        if extra:
+            raise NotImplementedError(
+                "extra inputs belong to the vlm/encdec families: ROADMAP.md "
+                "Queue 1 items 4 and 5")
+        B, S = prompts.shape
+        if max_len is None:
+            max_len = S + max_new_tokens + (self.cfg.frontend_tokens or 0)
+        batch: Dict[str, Any] = {
+            "tokens": torch.as_tensor(np.asarray(prompts), dtype=torch.int64,
+                                      device=self.device)}
+        logits, cache = self.model.prefill(self.params, batch, max_len)
+        out_tokens = []
+        token = logits[:, -1:].argmax(dim=-1)
+        for _ in range(max_new_tokens):
+            out_tokens.append(token)
+            logits, cache = self.model.decode_step(self.params, token, cache)
+            token = logits[:, -1:].argmax(dim=-1)
+        tokens = (torch.cat(out_tokens, dim=1) if out_tokens
+                  else torch.zeros((B, 0), dtype=torch.int64))
+        return GenerationResult(
+            tokens=tokens.cpu().numpy().astype(np.int32),
+            prefill_logits=logits[:, 0].cpu().numpy(),
+            steps=max_new_tokens,
+        )
+
+    def generate_stream(self, requests, *args, **kwargs):
+        raise NotImplementedError(
+            "generate_stream (continuous batching over a paged KV pool) is "
+            "not in repro_torch yet: ROADMAP.md Queue 1 item 6")

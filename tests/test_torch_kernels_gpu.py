@@ -1,21 +1,32 @@
-"""The CUDA BSR SpMM kernels against their plain PyTorch versions, on the
-card.  Every test here needs a CUDA card and skips where there is none; run
-them on one with ``python -m pytest -m gpu tests/test_torch_kernels_gpu.py``.
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card: the BSR SpMM kernels and the split-KV decode kernel.  Every test here
+needs a CUDA card and skips where there is none; run them on one with
+``python -m pytest -m gpu tests/test_torch_kernels_gpu.py``.
 
 The file imports only torch, numpy and the port (no JAX), so it runs where
-the JAX package is not installed.  Tolerance 1e-5 for the kernel against the
-plain version (they sum in different orders); the fleet kernel must equal
-the per-worker kernel bit for bit.
+the JAX package is not installed.  Tolerance 1e-5 for the BSR kernels
+against the plain versions (they sum in different orders); the fleet kernel
+must equal the per-worker kernel bit for bit.  The decode kernel is held to
+1e-5 in fp32 and 2e-2 in bf16 (its output is rounded to bf16).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.backends import TorchBsrBackend
+from repro_torch.configs import get_config
+from repro_torch.core.backends import (
+    DenseRefAttention,
+    TorchBsrBackend,
+    TorchSplitKAttention,
+)
 from repro_torch.core.sparse import CSRMatrix, csr_from_dense, random_sparse
 from repro_torch.data.graphchallenge import make_inputs, make_sparse_dnn
 from repro_torch.kernels.bsr_spmm import ops, ref
+from repro_torch.kernels.decode_attention import ops as decode_ops
+from repro_torch.kernels.decode_attention import ref as decode_ref
+from repro_torch.models import transformer
+from repro_torch.serving.engine import ServingEngine
 
 pytestmark = pytest.mark.gpu
 
@@ -102,3 +113,77 @@ def test_wrappers_raise_on_mixed_devices_and_wide_blocks(cuda):
         ops.bsr_spmm(torch.zeros((2, 3, 64, 32), device=cuda),
                      torch.zeros((2, 3), dtype=torch.int32, device=cuda), x,
                      bias=BIAS)
+
+
+DECODE_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
+              torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+
+
+def _decode_operands(device, B, H, KV, S, D, dtype, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device=device, dtype=dtype)
+            for shape in ((B, H, D), (B, KV, S, D), (B, KV, S, D))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("G,D", [(1, 64), (2, 128), (4, 64), (8, 128), (2, 32)])
+def test_decode_kernel_matches_plain(cuda, dtype, G, D):
+    """A capacity that is no multiple of the kernel's key tile, and cache
+    lengths 0 (the mean of V), 1, around the tile, and full."""
+    B, KV, S = 3, 2, 200
+    q, k, v = _decode_operands(cuda, B, KV * G, KV, S, D, dtype, seed=G * D)
+    for L in (0, 1, 31, 32, 33, 63, 64, 65, 199, 200):
+        lt = torch.tensor([L], dtype=torch.int32, device=cuda)
+        n0 = decode_ops.LAUNCHES["decode_attention"]
+        out, lse = decode_ops.decode_mha(q, k, v, lt)
+        torch.cuda.synchronize()
+        assert decode_ops.LAUNCHES["decode_attention"] == n0 + 1
+        want, want_lse = decode_ref.decode_attention_ref(q, k, v, lt)
+        assert out.dtype == dtype and lse.dtype == torch.float32
+        torch.testing.assert_close(out.float(), want.float(), **DECODE_TOL[dtype])
+        torch.testing.assert_close(lse, want_lse, **DECODE_TOL[dtype])
+
+
+def test_splitk_backend_on_the_card_matches_the_cpu_oracle(cuda):
+    q, k, v = _decode_operands(cuda, 2, 16, 8, 128, 128, torch.float32, seed=3)
+    got = TorchSplitKAttention(device="cuda").decode(q[:, None], k, v, 77)
+    want = DenseRefAttention().decode(q[:, None].cpu(), k.cpu(), v.cpu(), 77)
+    torch.testing.assert_close(got.cpu(), want, **DECODE_TOL[torch.float32])
+
+
+def test_decode_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    q, k, v = _decode_operands(cuda, 1, 6, 2, 16, 64, torch.float32, seed=0)
+    with pytest.raises(ValueError, match="G = H/KV"):  # G = 3
+        decode_ops.decode_mha(q, k, v, 4)
+    q, k, v = _decode_operands(cuda, 1, 4, 2, 16, 48, torch.float32, seed=0)
+    with pytest.raises(ValueError, match="D in"):
+        decode_ops.decode_mha(q, k, v, 4)
+    q, k, v = _decode_operands(cuda, 1, 4, 2, 16, 64, torch.float32, seed=0)
+    shifted = torch.empty(q.numel() + 1, device=cuda)[1:].view(q.shape)
+    shifted.copy_(q)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        decode_ops.decode_mha(shifted, k, v, 4)
+    with pytest.raises(ValueError, match="cache_len is on"):
+        decode_ops.decode_mha(q, k, v, torch.tensor([4], dtype=torch.int32))
+
+
+def test_engine_on_the_card_generates_the_cpu_tokens(cuda):
+    """The reduced internlm2 (D 32, G 2) in fp32: the engine on the card,
+    through the kernel, and on the CPU, through its plain version, pick the
+    same greedy tokens."""
+    cfg = get_config("internlm2-1.8b").reduced()
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    on_card = transformer.init(gen, cfg, dtype=torch.float32)
+    on_cpu = transformer.Transformer(cfg, dtype=torch.float32, device="cpu")
+    for dst, src in zip(on_cpu.parameters(), on_card.parameters()):
+        dst.copy_(src.cpu())
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 9))
+    n0 = decode_ops.LAUNCHES["decode_attention"]
+    got = ServingEngine(cfg, params=on_card).generate(prompts, max_new_tokens=5)
+    assert decode_ops.LAUNCHES["decode_attention"] == n0 + cfg.n_layers * 5
+    want = ServingEngine(cfg, params=on_cpu, device="cpu").generate(
+        prompts, max_new_tokens=5)
+    np.testing.assert_array_equal(got.tokens, want.tokens)
+    np.testing.assert_allclose(got.prefill_logits, want.prefill_logits,
+                               rtol=1e-4, atol=1e-4)
