@@ -4,7 +4,7 @@
 
 Run from the root of a checkout.  Phases, each printed as it ends:
 
-1. card: the card's name and power limit, then both kernel libraries'
+1. card: the card's name and power limit, then all four kernel libraries'
    builds, started together (``nvcc`` for ``sm_90a``, one per source, from
    the sources in the checkout);
 2. the BSR kernels against their plain PyTorch versions on the card, at the
@@ -33,7 +33,27 @@ Run from the root of a checkout.  Phases, each printed as it ends:
    bf16 at other points, are measured beside it); and
    ``torch-splitk`` and ``dense-ref`` on fp32 copies of the params must give
    identical greedy tokens and logits within 1e-4;
-6. one JSON line with each kernel's time, launches on its path, bound,
+6. the flash-attention prefill kernel (its path is its entry point
+   ``kernels/flash_attention/ops.py::mha``, which no model calls, as in the
+   reference): against its plain version at the reference's test shapes
+   (both dtypes, non-causal with Sq 128 / Sk 256, block-shape invariance),
+   at internlm2-1.8b's prefill shape (B 8, H 16, KV 8, S 512, D 128,
+   causal, bf16 and fp32) and at one long shape (B 1, S 8192, bf16);
+   tolerances 1e-5 fp32, 2e-2 bf16, and bf16 outputs also at rtol 8e-3,
+   atol 1e-4 against the plain version on fp32-widened inputs;
+7. mamba2-370m at full width (48 layers, d_model 1024, bf16 params drawn on
+   the card from seed 0): the chunked SSD scan kernel (its path is
+   ``kernels/ssd_scan/ops.py::ssd``) against its plain version at the
+   reference's test shapes (both dtypes; y at 1e-5 / 2e-2, bf16 y also as
+   flash's is, the state at 5x) and its sequential-recurrence state check (1e-4), at the model's prefill
+   shape fed layer 0's real inputs for the served prompts (B 8, H 32, G 1,
+   L 512, P 64, N 128, chunk 256, bf16) and at one long shape (B 1,
+   L 16384); then ``ServingEngine(get_config("mamba2-370m"))`` generates
+   32 tokens for 8 prompts of 512 (the path launches none of the
+   hand-written kernels, as in the reference), is profiled, and in fp32 on
+   the card picks the tokens the same engine picks on the CPU (batch 2,
+   prompt 256, 4 new tokens; logits within 1e-3);
+8. one JSON line with each kernel's time, launches on its path, bound,
    plain-version time and one library call's time.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
@@ -61,6 +81,10 @@ TOL = dict(rtol=1e-5, atol=1e-5)
 E2E_TOL = dict(rtol=1e-4, atol=1e-4)
 DECODE_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
               torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+# a bf16 output of a kernel that computes in fp32 and rounds once, against
+# the plain version on fp32-widened inputs: one bf16 rounding (2^-8
+# relative at most) and fp32 reassociation
+ULP_TOL = dict(rtol=8e-3, atol=1e-4)
 ARCH, SERVE_BATCH, PROMPT, NEW, NEW_FP32 = "internlm2-1.8b", 8, 512, 32, 8
 DECODE_SHAPE = (SERVE_BATCH, 16, 8, 640, 128)   # B, H, KV, S, D of the path
 LONG_BATCH, LONG_S = 32, 32768                  # one long-cache layer
@@ -75,14 +99,36 @@ LOGITS_OUTSIDE_MAX, AGREE_MIN = 0.01, 0.9
 PEAKS = {"H100 SXM": (3.35e12, 67e12, 989e12),
          "H100 PCIe": (2.0e12, 51e12, 756e12),
          "H100 NVL": (3.9e12, 60e12, 835e12)}
+# flash attention: the reference's test shapes (B, H, KV, S, D), the
+# serving model's prefill shape, one long shape
+FLASH_TEST_SHAPES = ((2, 4, 4, 256, 64), (2, 8, 2, 256, 64), (1, 4, 4, 512, 128))
+FLASH_SHAPE = (SERVE_BATCH, 16, 8, PROMPT, 128)
+FLASH_LONG = (1, 16, 8, 8192, 128)
+# SSD scan: the reference's test shapes (B, H, G, L, P, N, chunk), mamba2's
+# prefill shape and one long shape
+SSM_ARCH = "mamba2-370m"
+SSD_TEST_SHAPES = ((2, 4, 1, 256, 32, 16, 64), (1, 4, 2, 512, 64, 32, 128),
+                   (2, 2, 2, 128, 32, 64, 128))
+SSD_LONG = (1, 32, 1, 16384, 64, 128, 256)
+# fp32 mamba2-370m, the engine on the card against the same engine on the
+# CPU: 48 layers of fp32 sums in other orders (TF32 off), 12 times the
+# depth the reference's 1e-4 model-level tolerance is set for
+SSM_CPU_BATCH, SSM_CPU_PROMPT, SSM_CPU_NEW = 2, 256, 4
+SSM_CPU_TOL = dict(rtol=1e-3, atol=1e-3)
 SOURCES = {"bsr_spmm_fused": "src/repro_torch/kernels/bsr_spmm/csrc/bsr_spmm.cu",
            "bsr_spmm_fleet": "src/repro_torch/kernels/bsr_spmm/csrc/bsr_spmm.cu",
            "decode_attention": ("src/repro_torch/kernels/decode_attention/csrc/"
-                                "decode_attention.cu")}
+                                "decode_attention.cu"),
+           "flash_attention": ("src/repro_torch/kernels/flash_attention/csrc/"
+                               "flash_attention.cu"),
+           "ssd_scan": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"}
 REPLACES = {"bsr_spmm_fused": "src/repro/kernels/bsr_spmm/bsr_spmm.py:180",
             "bsr_spmm_fleet": "src/repro/kernels/bsr_spmm/bsr_spmm.py:125",
             "decode_attention":
-                "src/repro/kernels/decode_attention/decode_attention.py:59"}
+                "src/repro/kernels/decode_attention/decode_attention.py:59",
+            "flash_attention":
+                "src/repro/kernels/flash_attention/flash_attention.py:62",
+            "ssd_scan": "src/repro/kernels/ssd_scan/ssd_scan.py:68"}
 
 
 def log(msg: str) -> None:
@@ -180,20 +226,33 @@ def bound(blocks, cols, counts, b: int, peaks):
             bytes_, flops)
 
 
-def reset_counts() -> None:
+def kernel_modules() -> dict:
+    """Each kernel source's wrapper module."""
     from repro_torch.kernels.bsr_spmm import ops as bsr_ops
     from repro_torch.kernels.decode_attention import ops as decode_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
 
-    for counts in (bsr_ops.LAUNCHES, decode_ops.LAUNCHES):
-        for key in counts:
-            counts[key] = 0
+    return {"bsr_spmm.cu": bsr_ops, "decode_attention.cu": decode_ops,
+            "flash_attention.cu": flash_ops, "ssd_scan.cu": ssd_ops}
+
+
+def reset_counts() -> None:
+    for mod in kernel_modules().values():
+        for key in mod.LAUNCHES:
+            mod.LAUNCHES[key] = 0
 
 
 def read_counts() -> dict:
-    from repro_torch.kernels.bsr_spmm import ops as bsr_ops
-    from repro_torch.kernels.decode_attention import ops as decode_ops
+    counts = {}
+    for mod in kernel_modules().values():
+        counts.update(mod.LAUNCHES)
+    return counts
 
-    return {**bsr_ops.LAUNCHES, **decode_ops.LAUNCHES}
+
+def only(counts: dict, **want) -> dict:
+    """``want`` with every other kernel at 0, to hold a path's counts to."""
+    return {key: want.get(key, 0) for key in counts}
 
 
 def fsi_phases(dev, peaks, card):
@@ -336,8 +395,6 @@ def fsi_phases(dev, peaks, card):
                       **kw)
         t_gpu = time.time() - t
         counts_run = read_counts()
-        check(counts_run.pop("decode_attention") == 0,
-              f"{ch}: the decode kernel ran on the FSI path")
         out = got.output
         check(out.shape == (N, BATCH) and bool(np.isfinite(out).all()),
               f"{ch}: output shape {out.shape} or non-finite values")
@@ -352,11 +409,12 @@ def fsi_phases(dev, peaks, card):
             check(got.raw_exchange_bytes == want.raw_exchange_bytes,
                   f"{ch}: raw exchange bytes")
             want_counts = {"bsr_spmm_fused": 0, "bsr_spmm_fleet": LAYERS}
-        check(counts_run == want_counts, f"{ch}: launches {counts_run}")
+        check(counts_run == only(counts_run, **want_counts),
+              f"{ch}: launches {counts_run}")
         rel_cost = abs(got.cost.total - want.cost.total) / want.cost.total
         check(rel_cost <= 0.05, f"{ch}: cost differs by {rel_cost:.3%}")
-        for key, v in counts_run.items():
-            launches[key] += v
+        for key in launches:
+            launches[key] += counts_run[key]
         log(f"[run_fsi] {ch}: torch-bsr {t_gpu:.2f} s host wall, numpy-fast "
             f"{t_np:.2f} s; max |out - dense_inference| {err:.3e}; "
             f"flops {got.metrics.get('flops_total', got.metrics.get('flops'))}, "
@@ -389,26 +447,18 @@ def decode_bound(B, H, KV, L, D, dtype, peaks):
             bytes_, flops)
 
 
-def sdpa_call(q, k, v, L):
-    """One ``scaled_dot_product_attention`` over the first ``L`` cache rows,
-    the KV heads shared by their G query heads.  A yardstick only; the port
-    never calls it."""
+def sdpa_call(q, k, v, L=None, causal=False):
+    """One ``scaled_dot_product_attention`` call, the KV heads shared by their
+    G query heads: for a decode query ``q [B, H, D]`` over the first ``L``
+    cache rows, or (``L`` None) for prefill ``q [B, H, Sq, D]`` over all of
+    k and v.  A yardstick only; the port never calls it."""
     F = torch.nn.functional
+    if L is None:
+        return lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=True)
     qs, ks, vs = q[:, :, None], k[:, :, :L], v[:, :, :L]
-    try:
-        F.scaled_dot_product_attention(qs, ks, vs, enable_gqa=True)
-
-        def call():
-            return F.scaled_dot_product_attention(qs, ks, vs,
+    return lambda: F.scaled_dot_product_attention(qs, ks, vs,
                                                   enable_gqa=True)[:, :, 0]
-    except TypeError:  # a torch without enable_gqa: repeat the KV heads
-        g = q.shape[1] // k.shape[1]
-        kr = ks.repeat_interleave(g, dim=1)
-        vr = vs.repeat_interleave(g, dim=1)
-
-        def call():
-            return F.scaled_dot_product_attention(qs, kr, vr)[:, :, 0]
-    return call
 
 
 def decode_phase(dev, peaks, card):
@@ -535,8 +585,7 @@ def serve_phase(dev, card):
     t_first = time.perf_counter() - t
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
-    want = {"decode_attention": cfg.n_layers * NEW, "bsr_spmm_fused": 0,
-            "bsr_spmm_fleet": 0}
+    want = only(launches, decode_attention=cfg.n_layers * NEW)
     check(launches == want, f"serving launches {launches}, want {want}")
     V = cfg.padded_vocab()
     check(res.tokens.shape == (SERVE_BATCH, NEW)
@@ -649,10 +698,13 @@ def serve_phase(dev, card):
     return launches["decode_attention"]
 
 
-def profile_decode(engine, prompts, step_ms: float, steps: int = 4) -> None:
+def profile_decode(engine, prompts, step_ms: float, steps: int = 4,
+                   kernel: str = "decode_attention") -> None:
     """Device time by kernel over ``steps`` decode steps after a prefill,
     from ``torch.profiler``; says so where the profiler saw no device
-    time.  ``step_ms`` is the unprofiled step time, for the busy share."""
+    time.  ``step_ms`` is the unprofiled step time, for the busy share;
+    ``kernel`` names the hand-written kernel whose share is reported
+    (``None`` where the step launches none)."""
     from torch.profiler import ProfilerActivity, profile
 
     dev = engine.device
@@ -680,15 +732,19 @@ def profile_decode(engine, prompts, step_ms: float, steps: int = 4) -> None:
         log("[profile] no device time in the profiler's trace: not measured")
         return
     rows.sort(key=dev_us, reverse=True)
-    dec = sum(dev_us(e) for e in rows if "decode_attention" in e.key) / 1e3 / steps
     n_kernels = sum(e.count for e in rows) / steps
-    log(f"[profile] {steps} decode steps (B {prompts.shape[0]}, cache "
-        f"{prompts.shape[1]}+): per step {total:.3f} ms device time over "
-        f"{n_kernels:.0f} kernels, {wall_ms:.2f} ms host wall under the "
-        f"profiler; device busy {100 * total / step_ms:.1f}% of the "
-        f"unprofiled {step_ms:.2f} ms step; decode kernel {dec:.4f} ms "
-        f"({100 * dec / total:.2f}% of device time, "
-        f"{100 * dec / step_ms:.2f}% of the step)")
+    if kernel is None:
+        share = "no hand-written kernel in the step"
+    else:
+        dec = sum(dev_us(e) for e in rows if kernel in e.key) / 1e3 / steps
+        share = (f"{kernel} kernel {dec:.4f} ms ({100 * dec / total:.2f}% of "
+                 f"device time, {100 * dec / step_ms:.2f}% of the step)")
+    log(f"[profile] {engine.cfg.name}, {steps} decode steps (B "
+        f"{prompts.shape[0]}, after a prompt of {prompts.shape[1]}): per step "
+        f"{total:.3f} ms device time over {n_kernels:.0f} kernels, "
+        f"{wall_ms:.2f} ms host wall under the profiler; device busy "
+        f"{100 * total / step_ms:.1f}% of the unprofiled {step_ms:.2f} ms "
+        f"step; {share}")
     for e in rows[:10]:
         log(f"  {dev_us(e) / 1e3 / steps:9.4f} ms/step  {e.count / steps:6.1f}"
             f" x/step  {e.key[:80]}")
@@ -721,20 +777,384 @@ class PlainSplitKOnCard:
 
 
 # ---------------------------------------------------------------------------
+# 6. the flash-attention prefill kernel
+# ---------------------------------------------------------------------------
+
+
+def attention_bound(B, H, KV, Sq, Sk, D, dtype, causal, peaks):
+    """Least time for one prefill attention call: q, k, v and o each moved
+    once over HBM, against 2·D FLOPs of q·kᵀ and 2·D of p·v for every
+    (query, key) pair the mask keeps.  q·kᵀ on bf16 inputs is exact on bf16
+    tensor cores with fp32 accumulation, so that half goes at the bf16 peak;
+    p stays fp32, so p·v goes at the fp32 peak, as both halves do for fp32
+    inputs."""
+    e = torch.tensor([], dtype=dtype).element_size()
+    bytes_ = (2 * B * H * Sq * D + 2 * B * KV * Sk * D) * e
+    pairs = (sum(min(i + 1, Sk) for i in range(Sq)) if causal else Sq * Sk)
+    half = 2.0 * B * H * D * pairs
+    flops = 2 * half
+    qk_peak = peaks[2] if dtype == torch.bfloat16 else peaks[1]
+    t_bytes = bytes_ / peaks[0] * 1e3
+    t_ops = (half / qk_peak + half / peaks[1]) * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            bytes_, flops)
+
+
+def flash_phase(dev, peaks, card):
+    """The kernel against its plain version, its path (``mha`` at the
+    prefill and long shapes), then its times.  Returns (timing, launches,
+    max error)."""
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def operands(B, H, KV, Sq, Sk, D, dtype):
+        return [torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+                for shape in ((B, H, Sq, D), (B, KV, Sk, D), (B, KV, Sk, D))]
+
+    def held(name, q, k, v, causal=True, out=None):
+        got = ops.mha(q, k, v, causal=causal) if out is None else out
+        want = ref.flash_attention_ref(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        tol = DECODE_TOL[q.dtype]
+        err = (got.float() - want.float()).abs().max().item()
+        torch.testing.assert_close(got.float(), want.float(), **tol,
+                                   msg=lambda m: f"flash {name}: {m}")
+        wide = ""
+        if q.dtype == torch.bfloat16:
+            want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                           causal=causal)
+            werr = (got.float() - want).abs().max().item()
+            torch.testing.assert_close(got.float(), want, **ULP_TOL,
+                                       msg=lambda m: f"flash {name} vs fp32: {m}")
+            wide = (f"; vs the plain version on fp32-widened inputs {werr:.3e} "
+                    f"(rtol {ULP_TOL['rtol']}, atol {ULP_TOL['atol']})")
+        log(f"  flash {name}: shape {tuple(got.shape)} max_abs_err {err:.3e} "
+            f"(tolerance rtol=atol={tol['atol']}){wide}")
+        del want
+        return err
+
+    errs = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, H, KV, S, D in FLASH_TEST_SHAPES:
+            errs.append(held(f"test shape B{B} H{H} KV{KV} S{S} D{D} {dtype}",
+                             *operands(B, H, KV, S, S, D, dtype)))
+        errs.append(held(f"non-causal Sq 128 Sk 256 {dtype}",
+                         *operands(1, 2, 2, 128, 256, 64, dtype), causal=False))
+    q, k, v = operands(1, 2, 2, 512, 512, 64, torch.float32)
+    a = ops.mha(q, k, v, block_q=128, block_k=128)
+    b = ops.mha(q, k, v, block_q=256, block_k=64)
+    check(torch.equal(a, b), "flash: block_q/block_k changed the result")
+    errs.append(held("blocks 256/64 (equal to 128/128, bitwise)", q, k, v,
+                     out=b))
+
+    # the path: the entry point at the prefill shapes and the long shape
+    B, H, KV, S, D = FLASH_SHAPE
+    main = {dt: operands(B, H, KV, S, S, D, dt)
+            for dt in (torch.bfloat16, torch.float32)}
+    LB, LH, LKV, LS, LD = FLASH_LONG
+    long = operands(LB, LH, LKV, LS, LS, LD, torch.bfloat16)
+    reset_counts()
+    outs = {"bf16": ops.mha(*main[torch.bfloat16]),
+            "fp32": ops.mha(*main[torch.float32]), "long": ops.mha(*long)}
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check(counts == only(counts, flash_attention=3), f"flash path launches {counts}")
+    for tag, ins in (("bf16", main[torch.bfloat16]), ("fp32", main[torch.float32]),
+                     ("long", long)):
+        errs.append(held(f"path {tag} {tuple(ins[0].shape)}", *ins, out=outs[tag]))
+    del outs
+
+    def times(q, k, v, tag, reps):
+        Bq, Hq, Sq, Dq = q.shape
+        ms = time_ms(lambda: ops.mha(q, k, v), reps=reps)
+        plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v), reps=reps)
+        lib_ms = lib_err = None
+        try:
+            call = sdpa_call(q, k, v, causal=True)
+            lib_err = (call().float() - ops.mha(q, k, v).float()).abs().max().item()
+            lib_ms = time_ms(call, reps=reps)
+        except (RuntimeError, NotImplementedError, ValueError) as e:
+            log(f"  {tag}: library call refused: {type(e).__name__}: {e}")
+        b_ms, b_by, nbytes, flops = attention_bound(
+            Bq, Hq, k.shape[1], Sq, k.shape[2], Dq, q.dtype, True, peaks)
+        log(f"[time] flash_attention {tag}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, library "
+            f"{lib_ms if lib_ms is None else f'{lib_ms:.4f}'} ms (max |library"
+            f" - kernel| {lib_err}), bound {b_ms:.4f} ms by {b_by} "
+            f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP, q·kᵀ at the "
+            f"{'bf16' if q.dtype == torch.bfloat16 else 'fp32'} peak and p·v at "
+            f"the fp32 peak; {flops / ms / 1e9:.2f} TFLOP/s achieved) on {card}")
+        return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                    bound_by=b_by)
+
+    timing = times(*main[torch.bfloat16],
+                   f"prefill shape B{B} H{H} KV{KV} S{S} D{D} causal bf16", 20)
+    timing["fp32"] = times(*main[torch.float32],
+                           f"prefill shape B{B} H{H} KV{KV} S{S} D{D} causal fp32",
+                           20)
+    del main
+    timing["long"] = dict(shape=list(FLASH_LONG), **times(
+        *long, f"long B{LB} H{LH} KV{LKV} S{LS} D{LD} causal bf16", 3))
+    del long, q, k, v, a, b
+    torch.cuda.empty_cache()
+    return timing, counts["flash_attention"], max(errs)
+
+
+# ---------------------------------------------------------------------------
+# 7. mamba2-370m: the SSD scan kernel and the serving path
+# ---------------------------------------------------------------------------
+
+
+def ssd_bound(B, H, G, L, P, N, chunk, dtype, peaks):
+    """Least time for one SSD scan: x, dt, A, B, C, y and the final state
+    each moved once over HBM, against the FLOPs the scan needs: per chunk,
+    C·B over the causal half once per group, at the bf16 peak for bf16
+    inputs (exact on tensor cores with fp32 accumulation), and at the fp32
+    peak M·(x dt) over the causal half, C·Sᵀ and the state update per head,
+    whose other operand is fp32 (the precision of the reference's math)."""
+    e = torch.tensor([], dtype=dtype).element_size()
+    bytes_ = ((2 * B * H * L * P + 2 * B * G * L * N) * e + B * H * L * 4
+              + H * 4 + B * H * P * N * 4)
+    nc, tri = L // chunk, chunk * (chunk + 1) // 2
+    cb = 2.0 * B * nc * G * tri * N
+    rest = 2.0 * B * nc * H * (tri * P + 2 * chunk * P * N)
+    flops = cb + rest
+    cb_peak = peaks[2] if dtype == torch.bfloat16 else peaks[1]
+    t_bytes = bytes_ / peaks[0] * 1e3
+    t_ops = (cb / cb_peak + rest / peaks[1]) * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            bytes_, flops)
+
+
+def ssd_phase(dev, peaks, card, engine, prompts):
+    """The kernel against its plain version, its path (``ssd`` on layer 0's
+    real inputs for the served prompts and at the long shape), then its
+    times.  Returns (timing, launches, max error)."""
+    from repro_torch.kernels.ssd_scan import ops, ref
+    from repro_torch.models import layers, mamba2
+
+    F = torch.nn.functional
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def recipe(B, H, G, L, P, N, dtype, dt_shift=0.0, a_one=False):
+        """The reference's input recipe; the model's init gives dt =
+        softplus(normal - 2) and A = -1."""
+        def rn(*shape):
+            return torch.randn(shape, generator=gen, device=dev)
+        A = (-torch.ones(H, device=dev) if a_one
+             else -torch.exp(rn(H) * 0.3))
+        return (rn(B, H, L, P).to(dtype), F.softplus(rn(B, H, L) + dt_shift),
+                A, rn(B, G, L, N).to(dtype), rn(B, G, L, N).to(dtype))
+
+    def held(name, ins, chunk, out=None):
+        y, s = ops.ssd(*ins, chunk=chunk) if out is None else out
+        wy, ws = ref.ssd_scan_ref(*ins, chunk=chunk)
+        torch.cuda.synchronize()
+        tol = DECODE_TOL[ins[0].dtype]
+        ey = (y.float() - wy).abs().max().item()
+        es = (s - ws).abs().max().item()
+        torch.testing.assert_close(y.float(), wy, **tol,
+                                   msg=lambda m: f"ssd {name} y: {m}")
+        torch.testing.assert_close(s, ws, rtol=5 * tol["rtol"],
+                                   atol=5 * tol["atol"],
+                                   msg=lambda m: f"ssd {name} state: {m}")
+        wide = ""
+        if ins[0].dtype == torch.bfloat16:
+            wy = ref.ssd_scan_ref(*(t.float() for t in ins), chunk=chunk)[0]
+            wey = (y.float() - wy).abs().max().item()
+            torch.testing.assert_close(y.float(), wy, **ULP_TOL,
+                                       msg=lambda m: f"ssd {name} y vs fp32: {m}")
+            wide = (f", y vs the plain version on fp32-widened inputs {wey:.3e} "
+                    f"(rtol {ULP_TOL['rtol']}, atol {ULP_TOL['atol']})")
+        log(f"  ssd {name}: max_abs_err y {ey:.3e} (|y| <= "
+            f"{wy.abs().max().item():.1f}, tolerance rtol=atol={tol['atol']}), "
+            f"state {es:.3e} (5x){wide}")
+        return max(ey, es)
+
+    errs = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, H, G, L, P, N, chunk in SSD_TEST_SHAPES:
+            errs.append(held(f"test shape B{B} H{H} G{G} L{L} P{P} N{N} "
+                             f"chunk {chunk} {dtype}",
+                             recipe(B, H, G, L, P, N, dtype), chunk))
+    # the final state against a sequential per-token recurrence
+    x, dt, A, Bm, Cm = ins = recipe(1, 2, 1, 64, 16, 8, torch.float32)
+    _, s = ops.ssd(*ins, chunk=32)
+    want = torch.zeros_like(s)
+    for t in range(64):
+        a = torch.exp(dt[:, :, t] * A[None])
+        want = want * a[..., None, None] + torch.einsum(
+            "bh,bn,bhp->bhpn", dt[:, :, t], Bm[:, 0, t], x[:, :, t])
+    torch.testing.assert_close(s, want, rtol=1e-4, atol=1e-4)
+    log(f"  ssd state vs the sequential recurrence (L 64, chunk 32): max_abs_err "
+        f"{(s - want).abs().max().item():.3e} (tolerance 1e-4)")
+
+    # layer 0's real SSD inputs for the served prompts, in the kernel layout
+    cfg = engine.cfg
+    tokens = torch.as_tensor(prompts, dtype=torch.int64, device=dev)
+    h0 = layers.embed_tokens(engine.params.embed, tokens)
+    xs, dt_, A0, Bm0, Cm0, _, _ = mamba2.ssm_inputs(engine.params.blocks[0], h0,
+                                                    cfg)
+    model = (xs.transpose(1, 2).contiguous(), dt_.transpose(1, 2).contiguous(),
+             A0, Bm0.transpose(1, 2).contiguous(), Cm0.transpose(1, 2).contiguous())
+    del h0, xs, dt_, Bm0, Cm0
+    B, H, L, P = model[0].shape
+    G, N, chunk = model[3].shape[1], model[3].shape[3], cfg.ssm_chunk
+    LB, LH, LG, LL, LP, LN, Lc = SSD_LONG
+    long = recipe(LB, LH, LG, LL, LP, LN, torch.bfloat16, dt_shift=-2.0,
+                  a_one=True)
+    reset_counts()
+    outs = {"model": ops.ssd(*model, chunk=chunk), "long": ops.ssd(*long, chunk=Lc)}
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check(counts == only(counts, ssd_scan=2), f"ssd path launches {counts}")
+    errs.append(held(f"path: layer 0 of {cfg.name} for the served prompts, B{B} "
+                     f"H{H} G{G} L{L} P{P} N{N} chunk {chunk} "
+                     f"{model[0].dtype}", model, chunk, out=outs["model"]))
+    errs.append(held(f"path: long B{LB} H{LH} L{LL} chunk {Lc} bf16", long, Lc,
+                     out=outs["long"]))
+    del outs
+
+    def times(ins, chunk, tag, reps):
+        Bx, Hx, Lx, Px = ins[0].shape
+        Gx, Nx = ins[3].shape[1], ins[3].shape[3]
+        ms = time_ms(lambda: ops.ssd(*ins, chunk=chunk), reps=reps)
+        plain_ms = time_ms(lambda: ref.ssd_scan_ref(*ins, chunk=chunk), reps=reps)
+        b_ms, b_by, nbytes, flops = ssd_bound(Bx, Hx, Gx, Lx, Px, Nx, chunk,
+                                              ins[0].dtype, peaks)
+        log(f"[time] ssd_scan {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+            f"ms, library none (PyTorch has no call that computes the SSD "
+            f"scan), bound {b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.1f} MB, "
+            f"{flops / 1e9:.3f} GFLOP, C·B at the input type's peak; "
+            f"{flops / ms / 1e9:.2f} TFLOP/s achieved) on {card}")
+        return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+                    bound_by=b_by)
+
+    timing = times(model, chunk, f"model shape B{B} H{H} G{G} L{L} P{P} N{N} "
+                   f"chunk {chunk} bf16", 20)
+    timing["long"] = dict(shape=list(SSD_LONG), **times(
+        long, Lc, f"long B{LB} H{LH} L{LL} chunk {Lc} bf16", 3))
+    del model, long
+    torch.cuda.empty_cache()
+    return timing, counts["ssd_scan"], max(errs)
+
+
+def mamba2_phase(dev, peaks, card):
+    """mamba2-370m at full width: the SSD kernel's phase on the served
+    prompts, then ``ServingEngine.generate``, its profile, and the fp32
+    engine on the card against the CPU.  Returns the SSD kernel's (timing,
+    launches, max error)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import mamba2
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = get_config(SSM_ARCH)
+    t = time.time()
+    engine = ServingEngine(cfg, seed=SEED)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in engine.params.parameters())
+    p_bytes = sum(p.numel() * p.element_size() for p in engine.params.parameters())
+    state_bytes = (cfg.n_layers * SERVE_BATCH * cfg.ssm_heads * cfg.ssm_head_dim
+                   * cfg.ssm_state * 4)
+    log(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.ssm_heads} SSM heads of {cfg.ssm_head_dim}, state "
+        f"{cfg.ssm_state}, {cfg.ssm_groups} group, chunk {cfg.ssm_chunk}, "
+        f"vocab {cfg.vocab_size} padded to {cfg.padded_vocab()}; "
+        f"{n_params / 1e6:.1f} M params ({p_bytes / 1e9:.3f} GB, "
+        f"{engine.params.embed.dtype}, A_log/dt_bias/D fp32) drawn on the card "
+        f"from seed {SEED} in {time.time() - t:.1f} s; SSM state "
+        f"{state_bytes / 1e9:.3f} GB fp32 at batch {SERVE_BATCH}")
+    rng = np.random.default_rng(1)
+    prompts = rng.integers(0, cfg.vocab_size,
+                           size=(SERVE_BATCH, PROMPT)).astype(np.int32)
+
+    ssd = ssd_phase(dev, peaks, card, engine, prompts)
+
+    engine.generate(prompts[:, :16], max_new_tokens=2)  # warm-up
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = engine.generate(prompts, max_new_tokens=NEW)
+    t_first = time.perf_counter() - t
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(launches == only(launches), f"mamba2 serving launches {launches}")
+    V = cfg.padded_vocab()
+    check(res.tokens.shape == (SERVE_BATCH, NEW)
+          and bool(((res.tokens >= 0) & (res.tokens < V)).all()),
+          f"tokens {res.tokens.shape} out of range")
+    check(res.prefill_logits.shape == (SERVE_BATCH, V)
+          and bool(np.isfinite(res.prefill_logits).all()),
+          "last step's logits not finite")
+    log(f"[serve] {cfg.name} generate(B {SERVE_BATCH}, prompt {PROMPT}, {NEW} "
+        f"new): {t_first:.3f} s host wall (first timed run); launches of the "
+        f"hand-written kernels 0 (the path runs the plain ssd_chunked and "
+        f"ssd_decode, as the reference's model does); peak device memory "
+        f"{peak / 1e9:.2f} GB; first tokens {res.tokens[0, :8].tolist()}")
+
+    def wall(n_new, reps=3):
+        ts = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engine.generate(prompts, max_new_tokens=n_new)
+            ts.append(time.perf_counter() - t0)
+        return statistics.median(ts)
+
+    t_prefill, t_gen = wall(0), wall(NEW)
+    step = (t_gen - t_prefill) / NEW
+    log(f"[serve] {cfg.name} prefill {t_prefill * 1e3:.2f} ms (median of 3 "
+        f"generate(..., 0)); generate {t_gen * 1e3:.2f} ms (median of 3); decode "
+        f"{step * 1e3:.3f} ms/step, {SERVE_BATCH / step:.1f} tokens/s; end to "
+        f"end {SERVE_BATCH * NEW / t_gen:.1f} tokens/s, on {card}")
+    profile_decode(engine, prompts, step * 1e3, kernel=None)
+
+    # fp32 copies of the same params: the engine on the card and on the CPU
+    p32 = mamba2.Mamba2(cfg, dtype=torch.float32, device=dev)
+    for dst, src in zip(p32.parameters(), engine.params.parameters()):
+        dst.copy_(src)
+    del engine
+    torch.cuda.empty_cache()
+    cpu = mamba2.Mamba2(cfg, dtype=torch.float32, device="cpu")
+    for dst, src in zip(cpu.parameters(), p32.parameters()):
+        dst.copy_(src.cpu())
+    short = prompts[:SSM_CPU_BATCH, :SSM_CPU_PROMPT]
+    t = time.time()
+    a = ServingEngine(cfg, params=p32).generate(short, max_new_tokens=SSM_CPU_NEW)
+    t_card = time.time() - t
+    t = time.time()
+    b = ServingEngine(cfg, params=cpu, device="cpu").generate(
+        short, max_new_tokens=SSM_CPU_NEW)
+    t_cpu = time.time() - t
+    check(np.array_equal(a.tokens, b.tokens),
+          f"fp32 tokens differ, card {a.tokens} vs cpu {b.tokens}")
+    err32 = float(np.abs(a.prefill_logits - b.prefill_logits).max())
+    np.testing.assert_allclose(a.prefill_logits, b.prefill_logits, **SSM_CPU_TOL)
+    log(f"[serve] {cfg.name} fp32 params, B {SSM_CPU_BATCH}, prompt "
+        f"{SSM_CPU_PROMPT}, {SSM_CPU_NEW} new tokens: card and CPU tokens "
+        f"identical {a.tokens.tolist()}; last-step max |logits diff| "
+        f"{err32:.3e} (tolerance 1e-3; logits std "
+        f"{float(b.prefill_logits.std()):.3f}); card {t_card:.1f} s, CPU "
+        f"{t_cpu:.1f} s host wall")
+    del p32, cpu
+    torch.cuda.empty_cache()
+    return ssd
+
+
+# ---------------------------------------------------------------------------
 
 
 def build_all():
     """Start every kernel's ``nvcc`` together; log each build's time and
     what ptxas said of registers and spills."""
-    from repro_torch.kernels.bsr_spmm import ops as bsr_ops
-    from repro_torch.kernels.decode_attention import ops as decode_ops
-
     def build(mod):
         t = time.time()
         mod.load_library()
         return time.time() - t
 
-    mods = {"bsr_spmm.cu": bsr_ops, "decode_attention.cu": decode_ops}
+    mods = kernel_modules()
     t = time.time()
     with ThreadPoolExecutor(len(mods)) as pool:
         took = dict(zip(mods, pool.map(build, mods.values())))
@@ -744,7 +1164,7 @@ def build_all():
         for line in (mod.library_path().parent / "nvcc.log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas: {line.strip()}")
-    log(f"[build] both libraries: {time.time() - t:.2f} s")
+    log(f"[build] all libraries: {time.time() - t:.2f} s")
 
 
 def main() -> int:
@@ -773,12 +1193,18 @@ def main() -> int:
     timing["decode_attention"], errs["decode_attention"] = decode_phase(
         dev, peaks, card)
     launches["decode_attention"] = serve_phase(dev, card)
+    (timing["flash_attention"], launches["flash_attention"],
+     errs["flash_attention"]) = flash_phase(dev, peaks, card)
+    timing["ssd_scan"], launches["ssd_scan"], errs["ssd_scan"] = mamba2_phase(
+        dev, peaks, card)
 
-    # ---- 6. kernels line -------------------------------------------------
+    # ---- 8. kernels line -------------------------------------------------
     kernels = [dict(name=k, route="cuda", source=SOURCES[k],
                     replaces=REPLACES[k], launches=launches[k],
                     max_abs_err=errs[k], **timing[k])
-               for k in ("bsr_spmm_fused", "bsr_spmm_fleet", "decode_attention")]
+               for k in SOURCES]
+    for k in kernels:
+        check(k["launches"] > 0, f"{k['name']} was not launched on its path")
     log(f"[total] {time.time() - t_start:.1f} s")
     print(card_line())
     print(json.dumps({"kernels": kernels}))

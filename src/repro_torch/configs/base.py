@@ -235,12 +235,12 @@ _ARCH_MODULES = {
     "llama3.2-1b": "llama3_2_1b",
     "minicpm-2b": "minicpm_2b",
     "codeqwen1.5-7b": "codeqwen1_5_7b",
+    "mamba2-370m": "mamba2_370m",
 }
 
 # The reference's other architectures, each with where the port stands.
 _NOT_PORTED = {
     "zamba2-7b": "ROADMAP.md Queue 1 item 5 ports the hybrid family",
-    "mamba2-370m": "ROADMAP.md Queue 1 item 5 ports the ssm family",
     "kimi-k2-1t-a32b": "ROADMAP.md Queue 1 item 5 ports the moe family",
     "deepseek-moe-16b": "ROADMAP.md Queue 1 item 5 ports the moe family",
     "seamless-m4t-medium": "ROADMAP.md Queue 1 item 5 ports the encdec family",

@@ -20,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import math
 from pathlib import Path
+from typing import Optional
 
 import torch
 

@@ -3,6 +3,8 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --arch internlm2-1.8b --batch 4 --prompt-len 16 --max-new 8
     PYTHONPATH=src python -m repro_torch.launch.serve --full-size
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \
+        --full-size
 """
 
 from __future__ import annotations

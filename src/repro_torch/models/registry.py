@@ -2,9 +2,9 @@
 
 ``get_model(cfg)`` returns a :class:`ModelApi` with init / forward /
 prefill / decode_step — the entry point the serving engine uses.  The
-``dense`` family is ported; every other family raises and names the
-ROADMAP.md item that ports it.  ``loss_fn`` waits for training (Queue 1
-item 8) and ``cache_seq_axes`` for continuous batching (item 6).
+``dense`` and ``ssm`` families are ported; every other family raises and
+names the ROADMAP.md item that ports it.  ``loss_fn`` waits for training
+(Queue 1 item 8) and ``cache_seq_axes`` for continuous batching (item 6).
 """
 
 from __future__ import annotations
@@ -13,17 +13,17 @@ import dataclasses
 from typing import Callable, Dict, Tuple
 
 import torch
+from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.backends import cache_layout_for, get_backend
-from repro_torch.models import transformer
+from repro_torch.models import mamba2, transformer
 
 __all__ = ["ModelApi", "get_model"]
 
 _NOT_PORTED = {
     "vlm": "ROADMAP.md Queue 1 item 4 (its vlm half)",
     "moe": "ROADMAP.md Queue 1 item 5",
-    "ssm": "ROADMAP.md Queue 1 item 5",
     "hybrid": "ROADMAP.md Queue 1 item 5",
     "encdec": "ROADMAP.md Queue 1 item 5",
 }
@@ -32,7 +32,7 @@ _NOT_PORTED = {
 @dataclasses.dataclass
 class ModelApi:
     cfg: ModelConfig
-    init: Callable[[torch.Generator], transformer.Transformer]
+    init: Callable[[torch.Generator], nn.Module]
     forward: Callable[..., torch.Tensor]
     prefill: Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
     decode_step: Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
@@ -42,10 +42,21 @@ def get_model(cfg: ModelConfig, attn_backend=None) -> ModelApi:
     """Build the family's :class:`ModelApi`.
 
     ``attn_backend`` — :class:`repro_torch.core.backends.AttentionBackend`
-    name or instance used by every decode step (``None`` → the attention
-    kind's default, ``torch-splitk``).  Resolved once here; its
-    :class:`KVCacheLayout` is derived from ``max_len`` at prefill.
+    name or instance used by every decode step of the attention-bearing
+    families (``None`` → the attention kind's default, ``torch-splitk``).
+    Resolved once here; its :class:`KVCacheLayout` is derived from
+    ``max_len`` at prefill.  The ``ssm`` family has no decode attention and
+    resolves none.
     """
+    if cfg.family == "ssm":
+        return ModelApi(
+            cfg=cfg,
+            init=lambda generator: mamba2.init(generator, cfg),
+            forward=lambda p, b: mamba2.forward(p, b["tokens"], cfg),
+            prefill=lambda p, b, max_len=0: mamba2.prefill(
+                p, b["tokens"], cfg, max_len),
+            decode_step=lambda p, t, c: mamba2.decode_step(p, t, c, cfg),
+        )
     if cfg.family != "dense":
         where = _NOT_PORTED.get(cfg.family, "no ROADMAP item")
         raise NotImplementedError(

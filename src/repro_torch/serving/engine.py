@@ -1,11 +1,12 @@
 """Batched serving engine: prefill + greedy decode loop.
 
-Prompts are prefilled once, then decoded step by step with the KV cache,
-as in the reference's device engine.  The engine runs on a CUDA card
-unless constructed with ``device="cpu"``, and everything it launches runs
-on that device: the attention backend defaults to ``torch-splitk``, the
-hand-written split-KV kernel, and the generated tokens stay on the device
-until the loop ends.
+Prompts are prefilled once, then decoded step by step with the family's
+cache (the KV cache of the dense family, the conv tails and SSM state of
+the ssm family), as in the reference's device engine.  The engine runs on
+a CUDA card unless constructed with ``device="cpu"``, and everything it
+launches runs on that device: the attention backend defaults to
+``torch-splitk``, the hand-written split-KV kernel, and the generated
+tokens stay on the device until the loop ends.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.backends import (
@@ -23,7 +25,6 @@ from repro_torch.core.backends import (
     cache_layout_for,
 )
 from repro_torch.models.registry import get_model
-from repro_torch.models.transformer import Transformer
 
 __all__ = ["GenerationResult", "ServingEngine"]
 
@@ -36,19 +37,22 @@ class GenerationResult:
 
 
 class ServingEngine:
-    def __init__(self, cfg: ModelConfig, params: Optional[Transformer] = None,
+    def __init__(self, cfg: ModelConfig, params: Optional[nn.Module] = None,
                  seed: int = 0, attn_backend=None, max_len_hint: int = 0,
                  engine: str = "device", device="cuda"):
         """``attn_backend``: decode-attention backend name or instance
-        (``repro_torch.core.backends``).  ``None`` is ``torch-splitk`` on
-        ``device``; ``"auto"`` asks the router for a
+        (``repro_torch.core.backends``).  ``None`` is the router's pick for
+        the card, built for ``device``: ``torch-splitk`` (its plain version
+        on the CPU), or the unused oracle for an attention-free family;
+        ``"auto"`` asks the router for a
         :class:`repro_torch.serving.router.DecodePlan` for ``device``'s
         type and ``max_len_hint``.
 
-        ``params``: a :class:`Transformer` (see
-        ``transformer.params_from_arrays``); ``None`` draws random bf16
-        weights on ``device`` from a ``torch.Generator`` seeded with
-        ``seed``.
+        ``params``: the family's module, a
+        :class:`repro_torch.models.transformer.Transformer` or a
+        :class:`repro_torch.models.mamba2.Mamba2` (see each module's
+        ``params_from_arrays``); ``None`` draws random bf16 weights on
+        ``device`` from a ``torch.Generator`` seeded with ``seed``.
 
         On ``"cuda"`` the matmuls accumulate in full fp32 as the reference
         does: the engine switches TF32 and reduced-precision bf16
@@ -71,12 +75,13 @@ class ServingEngine:
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
         self.cfg = cfg
-        if attn_backend == "auto":
-            from repro_torch.serving.router import route_decode_plan
+        if attn_backend in (None, "auto"):
+            from repro_torch.serving.router import route_attention_backend
 
-            attn_backend = route_decode_plan(
-                cfg, max_len=max_len_hint or None,
-                platform=self.device.type).attn_backend
+            auto = attn_backend == "auto"
+            attn_backend = route_attention_backend(
+                cfg, max_len=(max_len_hint or None) if auto else None,
+                platform=self.device.type if auto else "cuda")
         self.attn_backend = attention_backend_for(attn_backend, self.device)
         self.model = get_model(cfg, attn_backend=self.attn_backend)
         if params is None:
@@ -86,7 +91,9 @@ class ServingEngine:
 
     def cache_layout(self, max_len: int) -> KVCacheLayout:
         """The layout the engine's caches use for a given capacity: prefill
-        allocates ``[L, B, KV, padded_len(max_len), D]`` buffers with it."""
+        allocates ``[L, B, KV, padded_len(max_len), D]`` buffers with it.
+        An ssm engine's cache has no sequence axis; it answers with its
+        unused backend's layout, as the reference does."""
         return cache_layout_for(self.attn_backend, max_len)
 
     def generate(

@@ -56,13 +56,14 @@ def route_attention_backend(cfg: ModelConfig, max_len: Optional[int] = None,
       bounds that);
     * otherwise → ``dense-ref``.
 
-    Attention-free families get the oracle (unused).
+    Attention-free families get the oracle (unused), whatever the
+    platform, as in the reference.
     """
+    if cfg.is_attention_free:
+        return "dense-ref"
     if platform is None:
         raise ValueError("pass platform, the device type the engine serves "
                          "on ('cuda' or 'cpu'); the router does not guess it")
-    if cfg.is_attention_free:
-        return "dense-ref"
     if platform == "cuda":
         return "torch-splitk"
     if max_len is not None and max_len > 4096:

@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card: the BSR SpMM kernels and the split-KV decode kernel.  Every test here
+card: the BSR SpMM kernels, the split-KV decode kernel, the flash-attention
+prefill kernel and the chunked SSD scan kernel.  Every test here
 needs a CUDA card and skips where there is none; run them on one with
 ``python -m pytest -m gpu tests/test_torch_kernels_gpu.py``.
 
@@ -7,7 +8,9 @@ The file imports only torch, numpy and the port (no JAX), so it runs where
 the JAX package is not installed.  Tolerance 1e-5 for the BSR kernels
 against the plain versions (they sum in different orders); the fleet kernel
 must equal the per-worker kernel bit for bit.  The decode kernel is held to
-1e-5 in fp32 and 2e-2 in bf16 (its output is rounded to bf16).
+1e-5 in fp32 and 2e-2 in bf16 (its output is rounded to bf16), and so is
+the flash kernel; the SSD kernel's y is held to the same, its final state
+to five times that, as the reference holds the TPU kernel.
 """
 
 import numpy as np
@@ -25,7 +28,11 @@ from repro_torch.data.graphchallenge import make_inputs, make_sparse_dnn
 from repro_torch.kernels.bsr_spmm import ops, ref
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.decode_attention import ref as decode_ref
-from repro_torch.models import transformer
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention import ref as flash_ref
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan import ref as ssd_ref
+from repro_torch.models import mamba2, transformer
 from repro_torch.serving.engine import ServingEngine
 
 pytestmark = pytest.mark.gpu
@@ -182,6 +189,107 @@ def test_engine_on_the_card_generates_the_cpu_tokens(cuda):
     n0 = decode_ops.LAUNCHES["decode_attention"]
     got = ServingEngine(cfg, params=on_card).generate(prompts, max_new_tokens=5)
     assert decode_ops.LAUNCHES["decode_attention"] == n0 + cfg.n_layers * 5
+    want = ServingEngine(cfg, params=on_cpu, device="cpu").generate(
+        prompts, max_new_tokens=5)
+    np.testing.assert_array_equal(got.tokens, want.tokens)
+    np.testing.assert_allclose(got.prefill_logits, want.prefill_logits,
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,D,causal", [
+    (2, 4, 4, 128, 128, 64, True),     # MHA
+    (1, 8, 2, 200, 200, 128, True),    # GQA, a ragged last tile
+    (2, 6, 3, 96, 160, 64, False),     # non-causal, Sq != Sk
+    (1, 4, 1, 160, 96, 128, True),     # causal, Sq > Sk (top-left aligned)
+    (3, 16, 8, 64, 64, 128, True),     # one tile
+])
+def test_flash_kernel_matches_plain(cuda, dtype, B, H, KV, Sq, Sk, D, causal):
+    gen = torch.Generator(device=cuda).manual_seed(Sq + Sk + D)
+    q, k, v = [torch.randn(shape, generator=gen, device=cuda, dtype=dtype)
+               for shape in ((B, H, Sq, D), (B, KV, Sk, D), (B, KV, Sk, D))]
+    n0 = flash_ops.LAUNCHES["flash_attention"]
+    got = flash_ops.mha(q, k, v, causal=causal, block_q=8, block_k=8)
+    torch.cuda.synchronize()
+    assert flash_ops.LAUNCHES["flash_attention"] == n0 + 1
+    want = flash_ref.flash_attention_ref(q, k, v, causal=causal)
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), **DECODE_TOL[dtype])
+
+
+def test_flash_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = [torch.randn((1, 4, 64, 48), generator=gen, device=cuda)
+               for _ in range(3)]
+    with pytest.raises(ValueError, match="D in"):
+        flash_ops.mha(q, k, v)
+    q = torch.randn((1, 4, 64, 64), generator=gen, device=cuda)
+    shifted = torch.empty(q.numel() + 1, device=cuda)[1:].view(q.shape)
+    shifted.copy_(q)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_ops.mha(shifted, q, q)
+    with pytest.raises(ValueError, match="is on"):
+        flash_ops.mha(q, q.cpu(), q)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("B,H,G,L,P,N,chunk", [
+    (2, 4, 1, 192, 32, 16, 64),
+    (1, 4, 2, 256, 64, 32, 128),
+    (2, 6, 3, 96, 32, 64, 48),       # a chunk that is no multiple of 64
+    (1, 2, 1, 64, 16, 8, 32),
+    (2, 4, 2, 512, 64, 128, 256),    # mamba2-370m's widths
+])
+def test_ssd_kernel_matches_plain(cuda, dtype, B, H, G, L, P, N, chunk):
+    gen = torch.Generator(device=cuda).manual_seed(L + P + N)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device=cuda)
+
+    x, Bm, Cm = rn(B, H, L, P).to(dtype), rn(B, G, L, N).to(dtype), rn(B, G, L, N).to(dtype)
+    dt = torch.nn.functional.softplus(rn(B, H, L))
+    A = -torch.exp(rn(H) * 0.3)
+    n0 = ssd_ops.LAUNCHES["ssd_scan"]
+    y, s = ssd_ops.ssd(x, dt, A, Bm, Cm, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_ops.LAUNCHES["ssd_scan"] == n0 + 1
+    want_y, want_s = ssd_ref.ssd_scan_ref(x, dt, A, Bm, Cm, chunk=chunk)
+    tol = DECODE_TOL[dtype]
+    assert y.dtype == dtype and s.dtype == torch.float32
+    torch.testing.assert_close(y.float(), want_y, **tol)
+    torch.testing.assert_close(s, want_s, rtol=5 * tol["rtol"],
+                               atol=5 * tol["atol"])
+
+
+def test_ssd_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    x = torch.zeros((1, 2, 64, 24), device=cuda)
+    dt, A = torch.ones((1, 2, 64), device=cuda), -torch.ones(2, device=cuda)
+    Bm = torch.zeros((1, 1, 64, 16), device=cuda)
+    with pytest.raises(ValueError, match=r"\(P, N\) in"):
+        ssd_ops.ssd(x, dt, A, Bm, Bm, chunk=32)
+    x = torch.zeros((1, 2, 512, 32), device=cuda)
+    dt = torch.ones((1, 2, 512), device=cuda)
+    Bm = torch.zeros((1, 1, 512, 16), device=cuda)
+    with pytest.raises(ValueError, match="chunk <="):
+        ssd_ops.ssd(x, dt, A, Bm, Bm, chunk=512)
+
+
+def test_mamba2_engine_on_the_card_generates_the_cpu_tokens(cuda):
+    """The reduced mamba2-370m in fp32: the engine on the card and on the
+    CPU pick the same greedy tokens; the path launches no hand-written
+    kernel."""
+    cfg = get_config("mamba2-370m").reduced()
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    on_card = mamba2.init(gen, cfg, dtype=torch.float32)
+    on_cpu = mamba2.Mamba2(cfg, dtype=torch.float32, device="cpu")
+    for dst, src in zip(on_cpu.parameters(), on_card.parameters()):
+        dst.copy_(src.cpu())
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 40))
+    n0 = (dict(ssd_ops.LAUNCHES), dict(decode_ops.LAUNCHES))
+    got = ServingEngine(cfg, params=on_card).generate(prompts, max_new_tokens=5)
+    assert (ssd_ops.LAUNCHES, decode_ops.LAUNCHES) == n0
     want = ServingEngine(cfg, params=on_cpu, device="cpu").generate(
         prompts, max_new_tokens=5)
     np.testing.assert_array_equal(got.tokens, want.tokens)
