@@ -6,7 +6,8 @@ Run from the root of a checkout.  Phases, each printed as it ends:
 
 1. card: the card's name and power limit, then all four kernel libraries'
    builds, started together (``nvcc`` for ``sm_90a``, one per source, from
-   the sources in the checkout);
+   the sources in the checkout), and the count of ``HGMMA`` (``wgmma``)
+   instructions in the flash library's SASS, which must be above 0;
 2. the BSR kernels against their plain PyTorch versions on the card, at the
    FSI path's shapes and data (GraphChallenge N = 65536, batch 128, 32x32
    blocks, K up to 32; the fleet of P = 64 workers that ``run_fsi``
@@ -20,8 +21,10 @@ Run from the root of a checkout.  Phases, each printed as it ends:
    equality with a ``numpy-fast`` run (cost within 5%);
 4. the split-KV decode kernel against its plain version on the card: the
    serving path's shape (B 8, H 16, KV 8, D 128, S 640) in bf16 (2e-2) and
-   fp32 (1e-5) at cache lengths 0, 1, 63, 64, 65, 544 and 640; G = 1 and
-   G = 4 at D 64; one long-cache layer (B 32, KV 8, S 32768, D 128, bf16);
+   fp32 (1e-5) at cache lengths 0, 1, 63, 64, 65, 544 and 640 and one key
+   either side of every split's first and last key (the kernel splits the
+   cache across blocks); G = 1 and G = 4 at D 64; one long-cache layer
+   (B 32, KV 8, S 32768, D 128, bf16);
 5. the serving path: ``ServingEngine(get_config("internlm2-1.8b"))`` at
    full width (24 layers, bf16 params drawn on the card from seed 0,
    ``torch-splitk``) generates 32 tokens for 8 prompts of 512 tokens; every
@@ -38,7 +41,8 @@ Run from the root of a checkout.  Phases, each printed as it ends:
    reference): against its plain version at the reference's test shapes
    (both dtypes, non-causal with Sq 128 / Sk 256, block-shape invariance),
    at internlm2-1.8b's prefill shape (B 8, H 16, KV 8, S 512, D 128,
-   causal, bf16 and fp32) and at one long shape (B 1, S 8192, bf16);
+   causal, bf16 and fp32) and at one long shape (B 1, S 8192, bf16); bf16
+   inputs run the tensor-core kernel, fp32 the scalar one;
    tolerances 1e-5 fp32, 2e-2 bf16, and bf16 outputs also at rtol 8e-3,
    atol 1e-4 against the plain version on fp32-widened inputs;
 7. mamba2-370m at full width (48 layers, d_model 1024, bf16 params drawn on
@@ -55,6 +59,14 @@ Run from the root of a checkout.  Phases, each printed as it ends:
    prompt 256, 4 new tokens; logits within 1e-3);
 8. one JSON line with each kernel's time, launches on its path, bound,
    plain-version time and one library call's time.
+
+Times are medians of single calls between two CUDA events; below ~0.1 ms
+that is mostly the wrapper's host time, so the decode kernel at the serving
+shape and the flash kernel at the prefill shape, and their library calls,
+are also timed per launch over 50 back-to-back launches between one pair
+of events, over 50 launches captured in one CUDA graph and replayed (the
+host's time per call left out), and by the device time per call that
+``torch.profiler`` sees.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 raises, and the script exits non-zero without printing it; it also exits
@@ -85,6 +97,11 @@ DECODE_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
 # the plain version on fp32-widened inputs: one bf16 rounding (2^-8
 # relative at most) and fp32 reassociation
 ULP_TOL = dict(rtol=8e-3, atol=1e-4)
+# and the share of its elements equal to that version rounded to bf16: an
+# fp32 p·v misses it only by summation order (in 0.04-0.7% of the elements
+# at the shapes here, most at S 8192), a p rounded to bf16 (as the plain
+# version in bf16 rounds it) in about 42%
+EXACT_SHARE = 0.98
 ARCH, SERVE_BATCH, PROMPT, NEW, NEW_FP32 = "internlm2-1.8b", 8, 512, 32, 8
 DECODE_SHAPE = (SERVE_BATCH, 16, 8, 640, 128)   # B, H, KV, S, D of the path
 LONG_BATCH, LONG_S = 32, 32768                  # one long-cache layer
@@ -171,6 +188,74 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
         e1.synchronize()
         times.append(e0.elapsed_time(e1))
     return statistics.median(times)
+
+
+def graph_ms(fn, n: int = 50, reps: int = 5) -> float:
+    """Per-call time of ``n`` calls captured in one CUDA graph, replayed
+    between two CUDA events (median of ``reps`` replays): back to back with
+    none of the host's time per call.  The calls are warmed up on the
+    capture stream first, so scratch that a wrapper keeps per stream is
+    made there and not inside the capture."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(3):
+            fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        graph.replay()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1) / n)
+    del graph
+    return statistics.median(times)
+
+
+def burst_ms(fn, n: int = 50, reps: int = 5):
+    """Per-launch time of ``n`` back-to-back calls between one pair of CUDA
+    events (median of ``reps`` bursts), ``graph_ms`` of ``n`` calls, and the
+    device time per call that ``torch.profiler`` sees over ``n`` more (None
+    where it sees none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(n):
+            fn()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1) / n)
+    graph = graph_ms(fn, n, reps)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    dev_us = sum(getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+                 for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    return (statistics.median(times), graph,
+            dev_us / 1e3 / n if dev_us > 0 else None)
+
+
+def fmt_ms(x) -> str:
+    return "not measured" if x is None else f"{x:.4f}"
 
 
 def compare(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
@@ -434,6 +519,25 @@ def fsi_phases(dev, peaks, card):
 # ---------------------------------------------------------------------------
 
 
+def back_to_back(name: str, tag: str, kernel, library) -> dict:
+    """``burst_ms`` of the kernel and of the library call (where there is
+    one), logged; returns them as extra keys of the kernel's timing."""
+    k_ms, k_graph, k_dev = burst_ms(kernel)
+    l_ms, l_graph, l_dev = (burst_ms(library) if library is not None
+                            else (None, None, None))
+    def dev(x):
+        return ("device time not measured" if x is None
+                else f"{x:.4f} ms of device time a call")
+
+    log(f"[time] {name} {tag}, 50 back-to-back launches: kernel "
+        f"{k_ms:.4f} ms a launch, {k_graph:.4f} from a CUDA graph "
+        f"({dev(k_dev)}), library {fmt_ms(l_ms)} ms a launch, "
+        f"{fmt_ms(l_graph)} from a CUDA graph ({dev(l_dev)})")
+    return dict(burst_ms=k_ms, graph_ms=k_graph, device_ms=k_dev,
+                library_burst_ms=l_ms, library_graph_ms=l_graph,
+                library_device_ms=l_dev)
+
+
 def decode_bound(B, H, KV, L, D, dtype, peaks):
     """Least time for one decode call: q, the first ``L`` rows of K and V,
     out and lse each moved once over HBM, against 4·B·H·L·D FLOPs over the
@@ -492,27 +596,36 @@ def decode_phase(dev, peaks, card):
         return worst
 
     B, H, KV, S, D = DECODE_SHAPE
-    tile = 64  # the kernel's keys per block iteration at D 128 bf16
-    lens = [0, 1, tile - 1, tile, tile + 1, PROMPT + NEW, S]
-    errs, main = [], {}
-    for dtype in (torch.bfloat16, torch.float32):
-        q, k, v = operands(B, H, KV, S, D, dtype)
-        errs.append(held(f"main B{B} H{H} KV{KV} S{S} D{D} {dtype}", q, k, v,
-                         lens))
-        main[dtype] = (q, k, v)
+    tile = ops.SPLIT_TILE
+    main = {dt: operands(B, H, KV, S, D, dt)
+            for dt in (torch.bfloat16, torch.float32)}
+    edges = set()
+    for dtype, (q, k, v) in main.items():
+        n_split, split_keys = ops.plan_for(q, k)
+        log(f"  decode split plan at the serving shape, {dtype}: {n_split} "
+            f"splits of {split_keys} keys")
+        for j in range(n_split):  # each split's first and last key, +-1
+            for e in (j * split_keys, min((j + 1) * split_keys, S) - 1):
+                edges.update((e - 1, e, e + 1))
+    lens = sorted({0, 1, tile - 1, tile, tile + 1, PROMPT + NEW, S}
+                  | {e for e in edges if 0 <= e <= S})
+    log(f"  decode cache lengths {lens}")
+    errs = [held(f"main B{B} H{H} KV{KV} S{S} D{D} {dtype}", *main[dtype], lens)
+            for dtype in (torch.bfloat16, torch.float32)]
     for H_, KV_ in ((8, 8), (16, 4)):  # G = 1 and G = 4, D 64
         q, k, v = operands(4, H_, KV_, 300, 64, torch.bfloat16)
         errs.append(held(f"G{H_ // KV_} D64 bf16", q, k, v, [0, 1, 129, 300]))
         q, k, v = operands(4, H_, KV_, 300, 64, torch.float32)
         errs.append(held(f"G{H_ // KV_} D64 fp32", q, k, v, [0, 1, 129, 300]))
 
-    def times(q, k, v, L, tag, reps):
+    def times(q, k, v, L, tag, reps, burst=False):
         lt = torch.tensor([L], dtype=torch.int32, device=dev)
         Bq, Hq, Dq = q.shape
-        ms = time_ms(lambda: ops.decode_mha(q, k, v, lt), reps=reps)
+        kernel = lambda: ops.decode_mha(q, k, v, lt)  # noqa: E731
+        ms = time_ms(kernel, reps=reps)
         plain_ms = time_ms(lambda: ref.decode_attention_ref(q, k, v, lt),
                            reps=reps)
-        lib_ms = lib_err = None
+        lib_ms = lib_err = call = None
         try:
             call = sdpa_call(q, k, v, L)
             lib_err = (call().float() - ops.decode_mha(q, k, v, lt)[0].float()
@@ -520,6 +633,9 @@ def decode_phase(dev, peaks, card):
             lib_ms = time_ms(call, reps=reps)
         except (RuntimeError, NotImplementedError, ValueError) as e:
             log(f"  {tag}: library call refused: {type(e).__name__}: {e}")
+        extra = {}
+        if burst:
+            extra = back_to_back("decode_attention", tag, kernel, call)
         b_ms, b_by, nbytes, flops = decode_bound(Bq, Hq, k.shape[1], L, Dq,
                                                  q.dtype, peaks)
         log(f"[time] decode_attention {tag}: kernel {ms:.4f} ms, plain "
@@ -529,11 +645,41 @@ def decode_phase(dev, peaks, card):
             f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP; "
             f"{nbytes / ms / 1e6:.1f} GB/s achieved) on {card}")
         return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                    bound_by=b_by)
+                    bound_by=b_by, **extra)
+
+    def sweep(q, k, v, L, tag, splits, graph):
+        """The kernel at each split count (``ops.launch`` at a forced
+        plan), held to the plain version, timed from a CUDA graph
+        (``graph``) or as single calls; the plan's own count starred."""
+        lt = torch.tensor([L], dtype=torch.int32, device=dev)
+        want, want_lse = ref.decode_attention_ref(q, k, v, lt)
+        plan = ops.plan_for(q, k)
+        tiles = -(-k.shape[2] // tile)
+        cells, ms = [], {}
+        for n in sorted(set(splits) | {plan[0]}):
+            forced = ops.split_plan(k.shape[2], q.shape[0] * k.shape[1], 0,
+                                    n_split=n)
+            if forced[0] in ms:  # n rounds to a count already timed
+                continue
+            out, lse = ops.launch(q, k, v, lt, forced)
+            torch.testing.assert_close(out.float(), want.float(),
+                                       **DECODE_TOL[q.dtype])
+            torch.testing.assert_close(lse, want_lse, **DECODE_TOL[q.dtype])
+            call = lambda: ops.launch(q, k, v, lt, forced)  # noqa: E731
+            ms[forced[0]] = graph_ms(call) if graph else time_ms(call, reps=5)
+            star = "*" if forced == plan else ""
+            cells.append(f"{forced[0]}{star}: {ms[forced[0]]:.4f}")
+        log(f"[sweep] decode_attention {tag} ({tiles} tiles of {tile} keys; "
+            f"{'a launch from a CUDA graph' if graph else 'single calls'}), "
+            f"ms by n_split: {', '.join(cells)} on {card}")
+        return ms
 
     timing = times(*main[torch.bfloat16], PROMPT + NEW,
                    f"serving shape B{B} H{H} KV{KV} S{S} D{D} bf16 "
-                   f"cache_len {PROMPT + NEW}", reps=20)
+                   f"cache_len {PROMPT + NEW}", reps=20, burst=True)
+    timing["split_sweep"] = sweep(*main[torch.bfloat16], PROMPT + NEW,
+                                  "serving shape bf16", (1, 2, 3, 5, 8, 10),
+                                  graph=True)
     del main
     # one long-cache layer: 4.29 GB of K and V
     LB, LS = LONG_BATCH, LONG_S
@@ -542,6 +688,8 @@ def decode_phase(dev, peaks, card):
     long = times(q, k, v, LS, f"long cache B{LB} H{H} KV{KV} S{LS} D{D} bf16",
                  reps=10)
     timing["long_cache"] = dict(shape=[LB, H, KV, LS, D], **long)
+    timing["long_cache"]["split_sweep"] = sweep(
+        q, k, v, LS, "long cache bf16", (1, 4, 32), graph=False)
     del q, k, v
     torch.cuda.empty_cache()
     return timing, max(errs)
@@ -784,18 +932,23 @@ class PlainSplitKOnCard:
 def attention_bound(B, H, KV, Sq, Sk, D, dtype, causal, peaks):
     """Least time for one prefill attention call: q, k, v and o each moved
     once over HBM, against 2·D FLOPs of q·kᵀ and 2·D of p·v for every
-    (query, key) pair the mask keeps.  q·kᵀ on bf16 inputs is exact on bf16
-    tensor cores with fp32 accumulation, so that half goes at the bf16 peak;
-    p stays fp32, so p·v goes at the fp32 peak, as both halves do for fp32
-    inputs."""
+    (query, key) pair the mask keeps, on the least exact route for each.
+    bf16 inputs: q·kᵀ is exact on bf16 tensor cores with fp32
+    accumulation; p stays fp32, and an fp32 p against a bf16 v is exact as
+    three bf16 tensor-core products (p split into hi, mid and lo), so p·v
+    costs three times q·kᵀ's work, all at the bf16 peak.  fp32 inputs:
+    both products at the fp32 peak.  Returns the bound, what bounds it,
+    the bytes and the attention's own FLOPs (one p·v)."""
     e = torch.tensor([], dtype=dtype).element_size()
     bytes_ = (2 * B * H * Sq * D + 2 * B * KV * Sk * D) * e
     pairs = (sum(min(i + 1, Sk) for i in range(Sq)) if causal else Sq * Sk)
     half = 2.0 * B * H * D * pairs
     flops = 2 * half
-    qk_peak = peaks[2] if dtype == torch.bfloat16 else peaks[1]
     t_bytes = bytes_ / peaks[0] * 1e3
-    t_ops = (half / qk_peak + half / peaks[1]) * 1e3
+    if dtype == torch.bfloat16:
+        t_ops = (half + 3 * half) / peaks[2] * 1e3
+    else:
+        t_ops = flops / peaks[1] * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
             bytes_, flops)
 
@@ -812,7 +965,10 @@ def flash_phase(dev, peaks, card):
         return [torch.randn(shape, generator=gen, device=dev, dtype=dtype)
                 for shape in ((B, H, Sq, D), (B, KV, Sk, D), (B, KV, Sk, D))]
 
-    def held(name, q, k, v, causal=True, out=None):
+    def held(name, q, k, v, causal=True, out=None, control=False):
+        """``control``: also check that the bf16 plain version, which rounds
+        p to bf16, falls under ``EXACT_SHARE``, so that the share check can
+        tell an fp32 p·v from a rounded one at this shape."""
         got = ops.mha(q, k, v, causal=causal) if out is None else out
         want = ref.flash_attention_ref(q, k, v, causal=causal)
         torch.cuda.synchronize()
@@ -822,13 +978,29 @@ def flash_phase(dev, peaks, card):
                                    msg=lambda m: f"flash {name}: {m}")
         wide = ""
         if q.dtype == torch.bfloat16:
+            plain = want
             want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
                                            causal=causal)
             werr = (got.float() - want).abs().max().item()
             torch.testing.assert_close(got.float(), want, **ULP_TOL,
                                        msg=lambda m: f"flash {name} vs fp32: {m}")
+            rounded = want.to(torch.bfloat16)
+            share = (got == rounded).float().mean().item()
+            plain_share = (plain == rounded).float().mean().item()
+            check(share >= EXACT_SHARE,
+                  f"flash {name}: {share:.4%} of the elements equal the "
+                  f"fp32-widened plain version rounded to bf16, under "
+                  f"{EXACT_SHARE:.0%}")
+            if control:
+                check(plain_share < EXACT_SHARE,
+                      f"flash {name}: the bf16 plain version (p rounded to "
+                      f"bf16) has {plain_share:.4%} of its elements equal too")
             wide = (f"; vs the plain version on fp32-widened inputs {werr:.3e} "
-                    f"(rtol {ULP_TOL['rtol']}, atol {ULP_TOL['atol']})")
+                    f"(rtol {ULP_TOL['rtol']}, atol {ULP_TOL['atol']}), "
+                    f"{share:.4%} of the elements equal to it rounded to bf16 "
+                    f"(at least {EXACT_SHARE:.0%}; the bf16 plain version, p "
+                    f"rounded to bf16: {plain_share:.4%})")
+            del plain, rounded
         log(f"  flash {name}: shape {tuple(got.shape)} max_abs_err {err:.3e} "
             f"(tolerance rtol=atol={tol['atol']}){wide}")
         del want
@@ -862,14 +1034,16 @@ def flash_phase(dev, peaks, card):
     check(counts == only(counts, flash_attention=3), f"flash path launches {counts}")
     for tag, ins in (("bf16", main[torch.bfloat16]), ("fp32", main[torch.float32]),
                      ("long", long)):
-        errs.append(held(f"path {tag} {tuple(ins[0].shape)}", *ins, out=outs[tag]))
+        errs.append(held(f"path {tag} {tuple(ins[0].shape)}", *ins,
+                         out=outs[tag], control=tag != "fp32"))
     del outs
 
-    def times(q, k, v, tag, reps):
+    def times(q, k, v, tag, reps, burst=False):
         Bq, Hq, Sq, Dq = q.shape
-        ms = time_ms(lambda: ops.mha(q, k, v), reps=reps)
+        kernel = lambda: ops.mha(q, k, v)  # noqa: E731
+        ms = time_ms(kernel, reps=reps)
         plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v), reps=reps)
-        lib_ms = lib_err = None
+        lib_ms = lib_err = call = None
         try:
             call = sdpa_call(q, k, v, causal=True)
             lib_err = (call().float() - ops.mha(q, k, v).float()).abs().max().item()
@@ -878,21 +1052,24 @@ def flash_phase(dev, peaks, card):
             log(f"  {tag}: library call refused: {type(e).__name__}: {e}")
         b_ms, b_by, nbytes, flops = attention_bound(
             Bq, Hq, k.shape[1], Sq, k.shape[2], Dq, q.dtype, True, peaks)
+        route = ("q·kᵀ and p·v (three exact bf16 products) at the bf16 peak, "
+                 f"{2 * flops / 1e9:.3f} GFLOP of tensor-core work"
+                 if q.dtype == torch.bfloat16 else "both products at the fp32 peak")
         log(f"[time] flash_attention {tag}: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, library "
-            f"{lib_ms if lib_ms is None else f'{lib_ms:.4f}'} ms (max |library"
+            f"{plain_ms:.4f} ms, library {fmt_ms(lib_ms)} ms (max |library"
             f" - kernel| {lib_err}), bound {b_ms:.4f} ms by {b_by} "
-            f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP, q·kᵀ at the "
-            f"{'bf16' if q.dtype == torch.bfloat16 else 'fp32'} peak and p·v at "
-            f"the fp32 peak; {flops / ms / 1e9:.2f} TFLOP/s achieved) on {card}")
+            f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP, {route}; "
+            f"{flops / ms / 1e9:.2f} TFLOP/s achieved) on {card}")
+        extra = back_to_back("flash_attention", tag, kernel, call) if burst else {}
         return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                    bound_by=b_by)
+                    bound_by=b_by, **extra)
 
     timing = times(*main[torch.bfloat16],
-                   f"prefill shape B{B} H{H} KV{KV} S{S} D{D} causal bf16", 20)
+                   f"prefill shape B{B} H{H} KV{KV} S{S} D{D} causal bf16", 20,
+                   burst=True)
     timing["fp32"] = times(*main[torch.float32],
                            f"prefill shape B{B} H{H} KV{KV} S{S} D{D} causal fp32",
-                           20)
+                           20, burst=True)
     del main
     timing["long"] = dict(shape=list(FLASH_LONG), **times(
         *long, f"long B{LB} H{LH} KV{LKV} S{LS} D{LD} causal bf16", 3))
@@ -1165,6 +1342,16 @@ def build_all():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas: {line.strip()}")
     log(f"[build] all libraries: {time.time() - t:.2f} s")
+    from repro_torch.kernels import _build
+
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run(
+        [str(cuobjdump), "-sass", str(mods["flash_attention.cu"].library_path())],
+        capture_output=True, text=True, check=True, timeout=300).stdout
+    n_hgmma = sum("HGMMA" in line for line in sass.splitlines())
+    log(f"[sass] flash_attention.cu: {n_hgmma} HGMMA instructions (the bf16 "
+        f"path's wgmma on tensor cores)")
+    check(n_hgmma > 0, "flash_attention.cu has no HGMMA instruction")
 
 
 def main() -> int:

@@ -21,38 +21,54 @@
 // * 2 bytes of K and V for each (b, kv) and does about 4 * G * cache_len * D
 // FLOPs on them, G FLOPs a byte against the H100's ~295 (bf16 tensor cores)
 // or 20 (fp32 FFMA) a byte, so the least time is those bytes over HBM's
-// rate.  The design reads each K and V row once, with 16-byte loads, and
-// keeps everything else on chip:
+// rate, and p.v stays scalar fp32.  The design reads each K and V row once
+// and keeps as many bytes in flight as HBM needs:
 //
-//   * one CUDA block (8 warps) owns one (b, kv) and holds its G query rows
-//     in registers (the TPU kernel keeps them in VMEM);
-//   * R = D / (16 bytes) lanes share one key row, each holding a 16-byte
-//     slice; a warp covers 32 / R rows per load, and every R-lane "row
-//     group" runs its own online softmax (m, l, acc) over the keys
-//     t = group (mod groups), reducing its dot products with warp shuffles.
-//     A lane owns acc[G][its slice of D];
-//   * after the sweep the row groups merge their partials by lse weight,
-//     inside a warp with shuffles, then across warps in shared memory.
+//   * the grid is (B * KV, n_split): block (bh, j) sweeps one contiguous
+//     range of split_keys keys of its (b, kv), clipped at the valid prefix
+//     (the whole capacity when cache_len = 0).  The wrapper picks n_split
+//     from the capacity, B * KV and the blocks the card holds at once,
+//     never from cache_len, so cache_len stays in device memory (the
+//     counterpart of the TPU kernel's SMEM scalar): no host sync, and the
+//     same launch as the cache grows.
+//     It takes as many splits as one resident wave of blocks holds
+//     (decode_attention_blocks_per_sm says how many an SM holds), since a
+//     short cache is a latency chain, which a second wave lengthens; and at
+//     least enough for splits of at most 1024 keys, so that a long cache
+//     runs as many short blocks, which leave no ragged last wave.  A block
+//     whose range lies past the prefix writes an empty partial;
+//   * one thread keeps a ring of kStages K and V tiles (16 KB each) in
+//     flight with bulk copies (cp.async.bulk on the TMA engine, completing
+//     on an mbarrier per stage) while the block computes on the oldest;
+//   * R = D / (16 bytes) lanes share one key row of a tile, each holding a
+//     16-byte slice; every R-lane "row group" runs its own online softmax
+//     (m, l, acc) over its rows, reducing its dot products with warp
+//     shuffles, and a lane owns acc[G][its slice of D];
+//   * after the sweep the row groups merge by lse weight, inside a warp
+//     with shuffles, then across warps in shared memory, into the block's
+//     partial (m, l, acc) in scratch;
+//   * the last block of a (b, kv) to finish (an atomic ticket, which it
+//     resets to 0 for the next call) merges the n_split partials by lse
+//     into out and lse, inside the same launch.  With n_split = 1 the block
+//     writes out and lse itself.
 //
 // The TPU kernel carries (m, l, acc) across a sequential grid axis over KV
-// blocks; here that axis is the loop inside the block.  cache_len is read
-// from device memory (the counterpart of its SMEM scalar), so a decode loop
-// launches the same kernel as the cache grows, with no host sync.  For
-// cache_len >= 1 the sweep stops at cache_len, since the masked terms are
-// exactly 0; the capacity S need not be a multiple of anything.  Splitting
-// S across blocks to fill all 132 SMs at small batch, and cp.async/TMA
-// pipelining, are later work.
+// blocks; here that axis is the loop inside a block plus the merge.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int kWarps = 8;
+constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kUnroll = 4;  // keys a row group loads before it computes
+constexpr int kStages = 3;         // K and V tiles in flight
+constexpr int kTileBytes = 16384;  // shared memory of one K (or V) tile
+constexpr int kRingBytes = kStages * 2 * kTileBytes;
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -87,33 +103,110 @@ struct Slice<__nv_bfloat16> {
   }
 };
 
+// keys of one tile: kTileBytes of rows, at most 64
+template <typename T, int D>
+__host__ __device__ constexpr int tile_rows() {
+  return kTileBytes / (D * (int)sizeof(T)) < 64
+             ? kTileBytes / (D * (int)sizeof(T))
+             : 64;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// `bytes` (a multiple of 16) from global src to shared dst, completing on bar
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+// part: per (bh, split) G*D acc, then G m, then G l (fp32); tickets: one
+// int per bh, 0 between launches.
 template <typename T, int G, int D>
 __global__ void __launch_bounds__(kThreads)
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const int* __restrict__ len,
                         T* __restrict__ out, float* __restrict__ lse,
-                        int s_cap, float scale) {
+                        float* __restrict__ part, int* __restrict__ tickets,
+                        int s_cap, int split_keys, int n_split, float scale) {
   constexpr int kVec = Slice<T>::kVec;
   constexpr int R = D / kVec;        // lanes that share one key row
   constexpr int kRowsPerWarp = 32 / R;
   constexpr int kGroups = kWarps * kRowsPerWarp;
+  constexpr int kRows = tile_rows<T, D>();
+  constexpr int kRowBytes = D * (int)sizeof(T);
+  constexpr int kPart = G * (D + 2);  // floats of one partial
   static_assert(D % kVec == 0 && R >= 1 && R <= 32 && 32 % R == 0,
                 "D must be a multiple of 16 bytes and at most 32 of them");
+  static_assert(kRows % kGroups == 0, "a tile must cover the row groups");
+  static_assert(kWarps * G * (D + 2) * 4 <= kRingBytes, "merge space");
 
-  __shared__ float sm_m[kWarps][G];
-  __shared__ float sm_l[kWarps][G];
-  __shared__ float sm_acc[kWarps][G][D];
+  extern __shared__ __align__(128) uint8_t ring[];
+  __shared__ __align__(8) uint64_t full_bar[kStages];
+  __shared__ int last;
 
   const int bh = blockIdx.x;  // b * KV + kv
+  const int split = blockIdx.y;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int c = lane % R;     // this lane's 16-byte slice of a row
   const int grp = warp * kRowsPerWarp + lane / R;
 
-  const long long base = (long long)bh * s_cap * D + c * kVec;
-  const uint4* kb = reinterpret_cast<const uint4*>(k + base);
-  const uint4* vb = reinterpret_cast<const uint4*>(v + base);
-  constexpr int kRowStride = D / kVec;  // uint4s per row
+  const int cache_len = *len;
+  const int n = cache_len >= 1 ? min(cache_len, s_cap) : s_cap;
+  const int t0 = split * split_keys;
+  const int keys = max(0, min(t0 + split_keys, n) - t0);
+  const int n_tiles = (keys + kRows - 1) / kRows;
+  const uint8_t* kb = reinterpret_cast<const uint8_t*>(
+      k + ((long long)bh * s_cap + t0) * D);
+  const uint8_t* vb = reinterpret_cast<const uint8_t*>(
+      v + ((long long)bh * s_cap + t0) * D);
+  const uint32_t ring_s = smem_u32(ring);
+  const uint32_t bar0 = smem_u32(full_bar);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) mbar_init(bar0 + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // tile i into stage i % kStages (thread 0)
+  auto issue = [&](int i) {
+    const int s = i % kStages;
+    const int bytes = min(kRows, keys - i * kRows) * kRowBytes;
+    const uint32_t bar = bar0 + 8 * s;
+    mbar_expect_tx(bar, 2 * bytes);
+    bulk_load(ring_s + s * 2 * kTileBytes, kb + (long long)i * kRows * kRowBytes,
+              bytes, bar);
+    bulk_load(ring_s + s * 2 * kTileBytes + kTileBytes,
+              vb + (long long)i * kRows * kRowBytes, bytes, bar);
+  };
+  if (threadIdx.x == 0)
+    for (int i = 0; i < min(kStages, n_tiles); ++i) issue(i);
 
   // q [B, H, D] with H = KV * G: this block's heads start at row bh * G.
   float qf[G][kVec];
@@ -124,9 +217,6 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     Slice<T>::unpack(w, qf[g]);
   }
 
-  const int cache_len = *len;
-  const int n = cache_len >= 1 ? min(cache_len, s_cap) : s_cap;
-
   float m[G], l[G], acc[G][kVec];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
@@ -136,39 +226,44 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int e = 0; e < kVec; ++e) acc[g][e] = 0.f;
   }
 
-  const int steps = (n + kGroups * kUnroll - 1) / (kGroups * kUnroll);
-  for (int it = 0; it < steps; ++it) {
-    uint4 kr[kUnroll], vr[kUnroll];
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % kStages;
+    mbar_wait(bar0 + 8 * s, (i / kStages) & 1);
+    const int rows = min(kRows, keys - i * kRows);
+    const uint8_t* ks = ring + s * 2 * kTileBytes + c * 16;
+    const uint8_t* vs = ks + kTileBytes;
+    uint4 kr[kRows / kGroups], vr[kRows / kGroups];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int t = (it * kUnroll + u) * kGroups + grp;
-      if (t < n) {
-        kr[u] = __ldg(kb + (long long)t * kRowStride);
-        vr[u] = __ldg(vb + (long long)t * kRowStride);
+    for (int u = 0; u < kRows / kGroups; ++u) {
+      const int r = u * kGroups + grp;
+      if (r < rows) {
+        kr[u] = *reinterpret_cast<const uint4*>(ks + r * kRowBytes);
+        vr[u] = *reinterpret_cast<const uint4*>(vs + r * kRowBytes);
       } else {
         kr[u] = make_uint4(0u, 0u, 0u, 0u);
         vr[u] = kr[u];
       }
     }
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int t = (it * kUnroll + u) * kGroups + grp;
+    for (int u = 0; u < kRows / kGroups; ++u) {
+      const int r = u * kGroups + grp;
+      const int t = t0 + i * kRows + r;
       float kf[kVec], vf[kVec];
       Slice<T>::unpack(kr[u], kf);
       Slice<T>::unpack(vr[u], vf);
 #pragma unroll
       for (int g = 0; g < G; ++g) {
-        float part = 0.f;
+        float dot = 0.f;
 #pragma unroll
-        for (int e = 0; e < kVec; ++e) part = fmaf(qf[g][e], kf[e], part);
+        for (int e = 0; e < kVec; ++e) dot = fmaf(qf[g][e], kf[e], dot);
 #pragma unroll
         for (int off = R / 2; off > 0; off >>= 1)
-          part += __shfl_xor_sync(kFull, part, off);
-        if (t < n) {  // the same for all R lanes of the group
-          const float s = t < cache_len ? part * scale : kNegInf;
+          dot += __shfl_xor_sync(kFull, dot, off);
+        if (r < rows) {  // the same for all R lanes of the group
+          const float sv = t < cache_len ? dot * scale : kNegInf;
           // one exp: exp(s - m) when m stays, exp(m - s) as the
           // correction of the old terms when s raises the max
-          const float d = s - m[g];
+          const float d = sv - m[g];
           const float x = expf(-fabsf(d));
           const bool up = d > 0.f;
           const float corr = up ? x : 1.f;
@@ -177,10 +272,12 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
           for (int e = 0; e < kVec; ++e)
             acc[g][e] = fmaf(p, vf[e], acc[g][e] * corr);
-          m[g] = up ? s : m[g];
+          m[g] = up ? sv : m[g];
         }
       }
     }
+    __syncthreads();  // every thread is done with stage s
+    if (threadIdx.x == 0 && i + kStages < n_tiles) issue(i + kStages);
   }
 
   // merge the row groups of a warp: lanes c, c + R, c + 2R, ... hold the
@@ -203,87 +300,142 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       m[g] = mn;
     }
   }
+  // the ring is free (every copy landed and was read): merge space
+  float* sm_acc = reinterpret_cast<float*>(ring);  // [kWarps][G][D]
+  float* sm_m = sm_acc + kWarps * G * D;            // [kWarps][G]
+  float* sm_l = sm_m + kWarps * G;
   if (lane < R) {
 #pragma unroll
     for (int g = 0; g < G; ++g) {
 #pragma unroll
-      for (int e = 0; e < kVec; ++e) sm_acc[warp][g][c * kVec + e] = acc[g][e];
+      for (int e = 0; e < kVec; ++e)
+        sm_acc[(warp * G + g) * D + c * kVec + e] = acc[g][e];
       if (lane == 0) {
-        sm_m[warp][g] = m[g];
-        sm_l[warp][g] = l[g];
+        sm_m[warp * G + g] = m[g];
+        sm_l[warp * G + g] = l[g];
       }
     }
   }
   __syncthreads();
 
-  // merge the warps and normalise
+  // merge the warps: normalise (n_split 1) or write the block's partial
+  float* mine = part + ((long long)bh * n_split + split) * kPart;
   for (int i = threadIdx.x; i < G * D; i += kThreads) {
     const int g = i / D;
     const int d = i % D;
     float mx = kNegInf;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm_m[w][g]);
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm_m[w * G + g]);
     float lt = 0.f, at = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) {
-      const float wt = expf(sm_m[w][g] - mx);
-      lt = fmaf(sm_l[w][g], wt, lt);
-      at = fmaf(sm_acc[w][g][d], wt, at);
+      const float wt = expf(sm_m[w * G + g] - mx);
+      lt = fmaf(sm_l[w * G + g], wt, lt);
+      at = fmaf(sm_acc[(w * G + g) * D + d], wt, at);
+    }
+    if (n_split == 1) {
+      const float lc = fmaxf(lt, 1e-30f);
+      const long long row = (long long)bh * G + g;
+      out[row * D + d] = Slice<T>::store(at / lc);
+      if (d == 0) lse[row] = mx + logf(lc);
+    } else {
+      mine[i] = at;
+      if (d == 0) {
+        mine[G * D + g] = mx;
+        mine[G * D + G + g] = lt;
+      }
+    }
+  }
+  if (n_split == 1) return;
+
+  // the last block of this (b, kv) merges the partials, one output element
+  // a thread, reading every split's (m, l, acc) from L2
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(&tickets[bh], 1) == n_split - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const float* parts = part + (long long)bh * n_split * kPart;
+  for (int i = threadIdx.x; i < G * D; i += kThreads) {
+    const int g = i / D;
+    float mx = kNegInf;
+    for (int j = 0; j < n_split; ++j)
+      mx = fmaxf(mx, __ldcg(parts + j * kPart + G * D + g));
+    float lt = 0.f, at = 0.f;
+    for (int j = 0; j < n_split; ++j) {
+      const float* pj = parts + j * kPart;
+      const float w = expf(__ldcg(pj + G * D + g) - mx);
+      lt = fmaf(__ldcg(pj + G * D + G + g), w, lt);
+      at = fmaf(__ldcg(pj + i), w, at);
     }
     const float lc = fmaxf(lt, 1e-30f);
     const long long row = (long long)bh * G + g;
-    out[row * D + d] = Slice<T>::store(at / lc);
-    if (d == 0) lse[row] = mx + logf(lc);
+    out[row * D + i % D] = Slice<T>::store(at / lc);
+    if (i % D == 0) lse[row] = mx + logf(lc);
   }
+  if (threadIdx.x == 0) tickets[bh] = 0;  // ready for the next launch
 }
 
-template <typename T, int G>
-int launch_d(int d_head, const void* q, const void* k, const void* v,
-             const int* len, void* out, float* lse, int blocks, int s_cap,
-             float scale, cudaStream_t stream) {
-  const T* qt = (const T*)q;
-  const T* kt = (const T*)k;
-  const T* vt = (const T*)v;
-  T* ot = (T*)out;
-  switch (d_head) {
-    case 32:
-      decode_attention_kernel<T, G, 32><<<blocks, kThreads, 0, stream>>>(
-          qt, kt, vt, len, ot, lse, s_cap, scale);
-      break;
-    case 64:
-      decode_attention_kernel<T, G, 64><<<blocks, kThreads, 0, stream>>>(
-          qt, kt, vt, len, ot, lse, s_cap, scale);
-      break;
-    case 128:
-      decode_attention_kernel<T, G, 128><<<blocks, kThreads, 0, stream>>>(
-          qt, kt, vt, len, ot, lse, s_cap, scale);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+// Lets `kernel` use `bytes` of dynamic shared memory on the current device,
+// asking the runtime once per device (`done` is the kernel's own bitmask).
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes, unsigned& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < 32 && (done >> dev & 1u))) return err;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && dev < 32) done |= 1u << dev;
+  return err;
 }
 
 template <typename T>
-int launch_g(int groups, int d_head, const void* q, const void* k,
-             const void* v, const int* len, void* out, float* lse, int blocks,
-             int s_cap, float scale, cudaStream_t stream) {
-  switch (groups) {
-    case 1:
-      return launch_d<T, 1>(d_head, q, k, v, len, out, lse, blocks, s_cap,
-                            scale, stream);
-    case 2:
-      return launch_d<T, 2>(d_head, q, k, v, len, out, lse, blocks, s_cap,
-                            scale, stream);
-    case 4:
-      return launch_d<T, 4>(d_head, q, k, v, len, out, lse, blocks, s_cap,
-                            scale, stream);
-    case 8:
-      return launch_d<T, 8>(d_head, q, k, v, len, out, lse, blocks, s_cap,
-                            scale, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
+struct Type {
+  using type = T;
+};
+template <int N>
+using Int = std::integral_constant<int, N>;
+
+// Calls f(Type<T>{}, Int<G>{}, Int<D>{}) for the kernel that dtype
+// (0: fp32, 1: bf16), groups and d_head select; an argument error where
+// none is built.
+template <typename T, int G, typename F>
+int with_d(int d_head, F&& f) {
+  switch (d_head) {
+    case 32: return f(Type<T>{}, Int<G>{}, Int<32>{});
+    case 64: return f(Type<T>{}, Int<G>{}, Int<64>{});
+    case 128: return f(Type<T>{}, Int<G>{}, Int<128>{});
+    default: return (int)cudaErrorInvalidValue;
   }
+}
+
+template <typename T, typename F>
+int with_g(int groups, int d_head, F&& f) {
+  switch (groups) {
+    case 1: return with_d<T, 1>(d_head, f);
+    case 2: return with_d<T, 2>(d_head, f);
+    case 4: return with_d<T, 4>(d_head, f);
+    case 8: return with_d<T, 8>(d_head, f);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename F>
+int with_kernel(int dtype, int groups, int d_head, F&& f) {
+  if (dtype == 0) return with_g<float>(groups, d_head, f);
+  if (dtype == 1) return with_g<__nv_bfloat16>(groups, d_head, f);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The kernel for T, G, D, allowed its ring of shared memory on the current
+// device (err says whether that worked).
+template <typename T, int G, int D>
+auto ready(cudaError_t& err) {
+  auto kernel = decode_attention_kernel<T, G, D>;
+  static unsigned allowed = 0;
+  err = allow_smem(kernel, kRingBytes, allowed);
+  return kernel;
 }
 
 }  // namespace
@@ -292,26 +444,53 @@ extern "C" {
 
 // q [B, KV*G, D], k and v [B, KV, S, D], all contiguous and 16-byte
 // aligned, of one dtype (0: fp32, 1: bf16); len a device int32; out
-// [B, KV*G, D] in that dtype; lse fp32 [B, KV*G].  Returns
-// cudaGetLastError() after the launch (0 on success), or an argument error
-// without launching.  The kernel runs on `stream` and does not synchronise.
+// [B, KV*G, D] in that dtype; lse fp32 [B, KV*G].  The grid is (B*KV,
+// n_split), block j sweeping keys [j*split_keys, (j+1)*split_keys) (a
+// multiple of 64); with n_split > 1, part is fp32 scratch of
+// B*KV*n_split*G*(D+2) floats and tickets B*KV int32 zeros, left zero.
+// Returns cudaGetLastError() after the launch (0 on success), or an
+// argument error without launching.  The kernel runs on `stream` and does
+// not synchronise.
 int decode_attention_launch(const void* q, const void* k, const void* v,
-                            const void* len, void* out, void* lse, int batch,
-                            int kv_heads, int groups, int s_cap, int d_head,
+                            const void* len, void* out, void* lse, void* part,
+                            void* tickets, int batch, int kv_heads, int groups,
+                            int s_cap, int d_head, int split_keys, int n_split,
                             int dtype, float scale, void* stream) {
-  if (batch < 1 || kv_heads < 1 || s_cap < 1)
+  if (batch < 1 || kv_heads < 1 || s_cap < 1 || split_keys < 1 ||
+      split_keys % 64 || n_split < 1 || n_split > 65535 ||
+      (long long)split_keys * n_split < s_cap ||
+      (n_split > 1 && (part == nullptr || tickets == nullptr)))
     return (int)cudaErrorInvalidValue;
   const long long blocks = (long long)batch * kv_heads;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0)
-    return launch_g<float>(groups, d_head, q, k, v, (const int*)len, out,
-                           (float*)lse, (int)blocks, s_cap, scale, st);
-  if (dtype == 1)
-    return launch_g<__nv_bfloat16>(groups, d_head, q, k, v, (const int*)len,
-                                   out, (float*)lse, (int)blocks, s_cap,
-                                   scale, st);
-  return (int)cudaErrorInvalidValue;
+  return with_kernel(dtype, groups, d_head, [&](auto t, auto g, auto d) {
+    using T = typename decltype(t)::type;
+    cudaError_t err;
+    auto kernel = ready<T, decltype(g)::value, decltype(d)::value>(err);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<dim3((unsigned)blocks, n_split), kThreads, kRingBytes,
+             (cudaStream_t)stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const int*)len, (T*)out,
+        (float*)lse, (float*)part, (int*)tickets, s_cap, split_keys, n_split,
+        scale);
+    return (int)cudaGetLastError();
+  });
+}
+
+// Blocks of the kernel for dtype, groups and d_head that one SM of the
+// current device holds at once (its ring of shared memory and its registers
+// decide), into *blocks.  Returns 0 or a CUDA error.
+int decode_attention_blocks_per_sm(int groups, int d_head, int dtype,
+                                   int* blocks) {
+  return with_kernel(dtype, groups, d_head, [&](auto t, auto g, auto d) {
+    using T = typename decltype(t)::type;
+    cudaError_t err;
+    auto kernel = ready<T, decltype(g)::value, decltype(d)::value>(err);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
+                                                          kThreads, kRingBytes);
+    return (int)err;
+  });
 }
 
 const char* decode_attention_error_string(int err) {

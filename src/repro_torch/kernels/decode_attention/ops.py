@@ -8,6 +8,14 @@ KV head sharing it.  ``cache_len`` is an int or an int32 tensor of one
 element on the tensors' device; the kernel reads it there, so a decode loop
 passes the same tensor arithmetic every step without a host sync.
 
+The kernel splits each (b, kv)'s cache across ``n_split`` blocks
+(``split_plan``, from the capacity S, B·KV and the blocks the card holds
+at once, never from ``cache_len``) and merges their partials by lse inside
+the same launch: the last block of a (b, kv) to finish merges, found with
+a ticket that it resets.  The partials and the tickets are scratch that the wrapper keeps
+per device and stream, the tickets zeroed once: launches on one stream
+run in order, and every launch leaves its tickets at zero.
+
 A tensor on the CPU goes to the plain version in ``ref.py``; a CUDA tensor
 goes to the kernel, or the wrapper raises.  There is no fallback from one
 to the other.  The kernel is compiled with ``nvcc`` for ``sm_90a`` at first
@@ -18,26 +26,31 @@ the kernel's launches (never the plain version's calls).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
-__all__ = ["decode_mha", "LAUNCHES", "GROUPS", "HEAD_DIMS", "load_library",
-           "library_path"]
+__all__ = ["decode_mha", "launch", "plan_for", "LAUNCHES", "GROUPS",
+           "HEAD_DIMS", "SPLIT_TILE", "MAX_SPLIT_TILES", "load_library",
+           "library_path", "split_plan"]
 
 LAUNCHES = {"decode_attention": 0}
 GROUPS = (1, 2, 4, 8)       # query heads per KV head the kernel is built for
 HEAD_DIMS = (32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+SPLIT_TILE = 64        # a split covers whole tiles of 64 keys
+MAX_SPLIT_TILES = 16   # tiles of a split on a long cache
 
 _HERE = Path(__file__).resolve().parent
 _lib: Optional[ctypes.CDLL] = None
 _SOURCE = _HERE / "csrc" / "decode_attention.cu"
+_scratch: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def library_path() -> Path:
@@ -47,9 +60,11 @@ def library_path() -> Path:
 
 def _configure(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.decode_attention_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
-                                            i, ctypes.c_float, p]
+    lib.decode_attention_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i,
+                                            i, i, i, i, i, ctypes.c_float, p]
     lib.decode_attention_launch.restype = i
+    lib.decode_attention_blocks_per_sm.argtypes = [i, i, i, p]
+    lib.decode_attention_blocks_per_sm.restype = i
     lib.decode_attention_error_string.argtypes = [i]
     lib.decode_attention_error_string.restype = ctypes.c_char_p
 
@@ -62,6 +77,71 @@ def load_library() -> ctypes.CDLL:
     if _lib is None:
         _lib = _build.load(_SOURCE, library_path(), _configure)
     return _lib
+
+
+def split_plan(s_cap: int, bkv: int, slots: int,
+               n_split: Optional[int] = None) -> Tuple[int, int]:
+    """``(n_split, split_keys)`` for a capacity of ``s_cap`` keys, ``bkv`` =
+    B·KV and ``slots`` blocks resident on the card at once: block ``j`` of a
+    (b, kv) sweeps keys ``[j · split_keys, (j + 1) · split_keys)`` of the
+    capacity, so the splits cover every key once, in whole
+    ``SPLIT_TILE``-key tiles, none past the capacity.  As many splits as
+    one resident wave holds (``slots // bkv``; a short cache is a latency
+    chain, which a second wave lengthens), and at least enough for splits
+    of ``MAX_SPLIT_TILES`` tiles (a long cache then runs as many short
+    blocks, which leave no ragged last wave); or about ``n_split`` where it
+    is given.  At least one split and at most one a tile.  ``cache_len``
+    plays no part."""
+    tiles = -(-s_cap // SPLIT_TILE)
+    if n_split is None:
+        n_split = max(slots // bkv, -(-tiles // MAX_SPLIT_TILES))
+    n = max(1, min(n_split, tiles))
+    per = -(-tiles // n)
+    return -(-tiles // per), per * SPLIT_TILE
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(s_cap: int, bkv: int, index: int, G: int, D: int,
+          dtype: int) -> Tuple[int, int]:
+    """``split_plan`` on device ``index``, once per shape: its SMs times the
+    blocks of the kernel for G, D and dtype that one SM holds, as the
+    library reports them."""
+    blocks = ctypes.c_int()
+    with torch.cuda.device(index):
+        err = load_library().decode_attention_blocks_per_sm(
+            G, D, dtype, ctypes.byref(blocks))
+    _raise_on(err, "decode_attention_blocks_per_sm")
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return split_plan(s_cap, bkv, max(1, blocks.value) * sms)
+
+
+def plan_for(q: torch.Tensor, k_cache: torch.Tensor) -> Tuple[int, int]:
+    """The ``(n_split, split_keys)`` that ``decode_mha`` launches these CUDA
+    operands with."""
+    B, H, D = q.shape
+    KV, S = k_cache.shape[1], k_cache.shape[2]
+    return _plan(S, B * KV, q.device.index, H // KV, D, _DTYPES[q.dtype])
+
+
+def _raise_on(err: int, entry: str) -> None:
+    if err != 0:
+        msg = load_library().decode_attention_error_string(err).decode()
+        raise RuntimeError(f"{entry} failed: CUDA error {err} ({msg})")
+
+
+def _scratch_for(dev: torch.device, stream: int, n_tickets: int,
+                 n_part: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """At least ``n_tickets`` int32 zeros for the kernel's tickets (it
+    leaves them zero) and ``n_part`` fp32 for its partials, one pair per
+    device and stream, grown as needed."""
+    key = (dev.index, stream)
+    tickets, part = _scratch.get(key, (None, None))
+    if tickets is None or tickets.numel() < n_tickets:
+        tickets = torch.zeros(n_tickets, dtype=torch.int32, device=dev)
+    if part is None or part.numel() < n_part:
+        part = torch.empty(n_part, dtype=torch.float32, device=dev)
+    _scratch[key] = (tickets, part)
+    return tickets, part
 
 
 def _check(q, k_cache, v_cache):
@@ -111,27 +191,45 @@ def decode_mha(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
         return decode_attention_ref(q, k_cache, v_cache, lens)
     if dev.type != "cuda":
         raise ValueError(f"decode_mha runs on cpu or cuda, not {dev.type}")
-    B, H, D = q.shape
-    KV, S = k_cache.shape[1], k_cache.shape[2]
-    G = H // KV
+    D = q.shape[2]
+    G = q.shape[1] // k_cache.shape[1]
     if G not in GROUPS or D not in HEAD_DIMS:
         raise ValueError(f"decode_mha's kernel takes G = H/KV in {GROUPS} and "
                          f"D in {HEAD_DIMS}, got G={G}, D={D}")
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned for the kernel")
+    return launch(q, k_cache, v_cache, lens, plan_for(q, k_cache))
+
+
+def launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+           lens: torch.Tensor, plan: Tuple[int, int]):
+    """The kernel's launch for ``decode_mha``, at the split plan ``plan`` =
+    ``(n_split, split_keys)`` from ``split_plan``; operands as
+    ``decode_mha`` has checked them, ``lens`` the int32 ``cache_len`` on
+    their device.  ``decode_mha`` passes its own plan; a caller that
+    measures plans passes others."""
+    B, H, D = q.shape
+    KV, S = k_cache.shape[1], k_cache.shape[2]
+    G = H // KV
+    n_split, split_keys = plan
+    dev = q.device
     out = torch.empty_like(q)
     lse = torch.empty((B, H), dtype=torch.float32, device=dev)
     lib = load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        tickets = part = None
+        if n_split > 1:
+            tickets, part = _scratch_for(dev, stream, B * KV,
+                                         B * KV * n_split * G * (D + 2))
         err = lib.decode_attention_launch(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            lens.data_ptr(), out.data_ptr(), lse.data_ptr(), B, KV, G, S, D,
-            _DTYPES[q.dtype], 1.0 / math.sqrt(D), stream)
-    if err != 0:
-        msg = lib.decode_attention_error_string(err).decode()
-        raise RuntimeError(f"decode_attention_launch failed: CUDA error {err} "
-                           f"({msg})")
+            lens.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            None if part is None else part.data_ptr(),
+            None if tickets is None else tickets.data_ptr(),
+            B, KV, G, S, D, split_keys, n_split, _DTYPES[q.dtype],
+            1.0 / math.sqrt(D), stream)
+    _raise_on(err, "decode_attention_launch")
     LAUNCHES["decode_attention"] += 1
     return out, lse

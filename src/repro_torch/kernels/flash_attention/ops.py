@@ -11,8 +11,13 @@ top-left aligned (query ``i`` sees keys ``j <= i``, with no offset when
 accepts what the reference accepts; they set no tile of the CUDA kernel,
 whose result does not depend on them.
 
+The dtype picks the CUDA kernel: bf16 inputs go to a tensor-core kernel
+(TMA loads, ``wgmma`` for q·kᵀ and for p·v, with the fp32 p split exactly
+into three bf16 pieces), fp32 inputs to a scalar fp32 kernel.  Both keep p
+in fp32 for p·v, as the reference does.
+
 A tensor on the CPU goes to the plain version in ``ref.py``; a CUDA tensor
-goes to the kernel, or the wrapper raises.  There is no fallback from one
+goes to a kernel, or the wrapper raises.  There is no fallback from one
 to the other.  The kernel is compiled with ``nvcc`` for ``sm_90a`` at first
 use (``kernels/_build.py``) and loaded with ``ctypes``.  ``LAUNCHES``
 counts the kernel's launches (never the plain version's calls).
@@ -92,15 +97,21 @@ def _check(q, k, v, block_q: int, block_k: int) -> None:
 
 
 def check_kernel_operands(q, k, v) -> None:
-    """What the CUDA kernel takes beyond what ``mha`` takes: a head dim in
-    ``HEAD_DIMS`` and 16-byte aligned operands.  ``mha`` calls it on the
-    CUDA path only."""
+    """What the CUDA kernels take beyond what ``mha`` takes: a head dim in
+    ``HEAD_DIMS``, and operands whose base is 16-byte aligned and whose row
+    and head strides are multiples of 16 bytes, as the fp32 kernel's 16-byte
+    loads and the bf16 kernel's TMA tensor maps need.  ``mha`` calls it on
+    the CUDA path only."""
     D = q.shape[-1]
     if D not in HEAD_DIMS:
         raise ValueError(f"mha's kernel takes D in {HEAD_DIMS}, got D={D}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned for the kernel")
+        stride = t.stride()
+        if (stride[1] * t.element_size()) % 16 or (stride[2] * t.element_size()) % 16:
+            raise ValueError(f"{name}'s row and head strides must be multiples "
+                             f"of 16 bytes for the kernel, got {stride}")
 
 
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -10,9 +10,13 @@ only sum in different orders, and 2e-2 in bf16, where the output is
 rounded to bf16 and the reference's oracle rounds the probabilities to
 bf16 before ``p @ v``.  ``cache_len = 0`` is swept too: every position is
 masked, and both sides give the mean of V over the whole capacity.
+The kernel splits each cache across blocks and merges their partials by
+lse; two tests hold the split plan's coverage and the merge's algebra.
 ``tests/test_torch_kernels_gpu.py`` holds the CUDA kernel against the plain
 version on the card.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -142,6 +146,96 @@ def test_plain_decode_paths_agree_and_split_kv_combines():
             torch.stack([o[:, None] for o, _ in parts]),
             torch.stack([l[:, None] for _, l in parts]))
         torch.testing.assert_close(merged[:, 0], out, **TOL["float32"])
+
+
+# (capacity S, B*KV) of the kernel's launches: the serving path's
+# (internlm2-1.8b at batch 8 and prompt 512 + 32, its reduced config at
+# batch 2), chip_smoke.py's (long cache, G 1 and G 4 at D 64) and the GPU
+# tests'
+PLAN_SHAPES = [(640, 64), (128, 4), (32768, 256), (300, 32), (300, 16),
+               (200, 6), (1000, 4), (4096, 16), (128, 1024), (1, 1)]
+
+
+@pytest.mark.parametrize("sms", [132, 114, 1])
+@pytest.mark.parametrize("S,bkv", PLAN_SHAPES)
+def test_split_plan_covers_every_key_once(S, bkv, sms):
+    """Block j of a (b, kv) sweeps keys [j*split_keys, (j+1)*split_keys) of
+    the capacity: every key in exactly one split, none past the capacity,
+    whole 64-key tiles; at two resident blocks an SM (what the library
+    reports for the serving shape's kernel on an H100), more than half of
+    the splits one wave holds (up to one a tile), and no more than that
+    or than splits of MAX_SPLIT_TILES tiles take.  A forced split count
+    gets the same cover."""
+    slots = 2 * sms
+    tiles = -(-S // ops.SPLIT_TILE)
+    for forced in (None, 1, 3, tiles + 5):
+        n_split, split_keys = ops.split_plan(S, bkv, slots, n_split=forced)
+        assert 1 <= n_split <= tiles
+        assert split_keys % ops.SPLIT_TILE == 0
+        covered = np.zeros(S, np.int64)
+        for j in range(n_split):
+            lo, hi = j * split_keys, min((j + 1) * split_keys, S)
+            assert lo < hi
+            covered[lo:hi] += 1
+        assert np.all(covered == 1)
+    n_split, split_keys = ops.split_plan(S, bkv, slots)
+    one_wave = max(slots // bkv, 1)
+    assert split_keys <= ops.MAX_SPLIT_TILES * ops.SPLIT_TILE
+    assert n_split <= max(one_wave, -(-tiles // ops.MAX_SPLIT_TILES))
+    assert 2 * n_split > min(one_wave, tiles)
+
+
+def _split_merge(q, k, v, cache_len, n_split, split_keys):
+    """The kernel's algorithm in torch: each split's partial (m, l, acc)
+    over its range of the swept prefix (the valid keys, or the whole
+    capacity when cache_len is 0, masked to -1e30), an empty range giving
+    (-1e30, 0, 0); then the lse merge of the partials."""
+    B, H, D = q.shape
+    KV, S = k.shape[1], k.shape[2]
+    G = H // KV
+    n = min(cache_len, S) if cache_len >= 1 else S
+    qg = q.float().reshape(B, KV, G, D)
+    ms, ls, accs = [], [], []
+    for j in range(n_split):
+        lo, hi = j * split_keys, min((j + 1) * split_keys, n)
+        if lo >= hi:
+            ms.append(torch.full((B, KV, G), -1e30))
+            ls.append(torch.zeros(B, KV, G))
+            accs.append(torch.zeros(B, KV, G, D))
+            continue
+        s = torch.einsum("bkgd,bksd->bkgs", qg, k[:, :, lo:hi].float()) / math.sqrt(D)
+        t = torch.arange(lo, hi)
+        s = torch.where(t < cache_len, s, torch.full_like(s, -1e30))
+        m = s.amax(-1)
+        p = torch.exp(s - m[..., None])
+        ms.append(m)
+        ls.append(p.sum(-1))
+        accs.append(torch.einsum("bkgs,bksd->bkgd", p, v[:, :, lo:hi].float()))
+    m, l, acc = torch.stack(ms), torch.stack(ls), torch.stack(accs)
+    top = m.amax(0)
+    w = torch.exp(m - top)
+    lt = (l * w).sum(0).clamp_min(1e-30)
+    out = (acc * w[..., None]).sum(0) / lt[..., None]
+    return out.reshape(B, H, D), (top + torch.log(lt)).reshape(B, H)
+
+
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+def test_split_partials_merged_by_lse_match_the_plain_version(G):
+    """The split-and-merge the kernel runs gives decode_attention_ref's out
+    and lse at cache_len 0, 1, one key either side of a split boundary, and
+    the full capacity (fp32, 1e-5)."""
+    S, D = 200, 32
+    rng = np.random.default_rng(G)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+               for shape in ((2, 2 * G, D), (2, 2, S, D), (2, 2, S, D)))
+    n_split, split_keys = ops.split_plan(S, 4, 132)
+    assert n_split > 1
+    edge = split_keys
+    for L in (0, 1, edge - 1, edge, edge + 1, S - 1, S):
+        out, lse = _split_merge(q, k, v, L, n_split, split_keys)
+        want, want_lse = ref.decode_attention_ref(q, k, v, L)
+        torch.testing.assert_close(out, want, **TOL["float32"])
+        torch.testing.assert_close(lse, want_lse, **TOL["float32"])
 
 
 def test_cache_len_tensor_and_cpu_path_counts_no_launch():

@@ -9,8 +9,10 @@ the JAX package is not installed.  Tolerance 1e-5 for the BSR kernels
 against the plain versions (they sum in different orders); the fleet kernel
 must equal the per-worker kernel bit for bit.  The decode kernel is held to
 1e-5 in fp32 and 2e-2 in bf16 (its output is rounded to bf16), and so is
-the flash kernel; the SSD kernel's y is held to the same, its final state
-to five times that, as the reference holds the TPU kernel.
+the flash kernel, whose bf16 tensor-core path is also held to rtol 8e-3,
+atol 1e-4 against the plain version on fp32-widened inputs; the SSD
+kernel's y is held to the same, its final state to five times that, as the
+reference holds the TPU kernel.
 """
 
 import numpy as np
@@ -152,6 +154,36 @@ def test_decode_kernel_matches_plain(cuda, dtype, G, D):
         torch.testing.assert_close(lse, want_lse, **DECODE_TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("B,H,KV,S,D", [
+    (8, 16, 8, 640, 128),     # the serving path's shape: 4 splits of 192
+    (2, 16, 2, 1000, 64),     # G 8, a capacity no multiple of 64
+    (4, 4, 4, 4096, 32),      # G 1, 16 splits of 4 tiles
+    (64, 16, 16, 128, 64),    # B*KV 1024: one split, no merge
+])
+def test_decode_kernel_at_split_boundaries_twice(cuda, dtype, B, H, KV, S, D):
+    """cache_len 0 and one key either side of every split's first and last
+    key, each launched twice: the second launch agrees bit for bit, so the
+    first left its tickets at zero."""
+    q, k, v = _decode_operands(cuda, B, H, KV, S, D, dtype, seed=S + D)
+    n_split, split_keys = decode_ops.plan_for(q, k)
+    edges = {0, 1, S - 1, S}
+    for j in range(n_split):
+        for e in (j * split_keys, min((j + 1) * split_keys, S) - 1):
+            edges.update((e - 1, e, e + 1))
+    for L in sorted(x for x in edges if 0 <= x <= S):
+        lt = torch.tensor([L], dtype=torch.int32, device=cuda)
+        first = decode_ops.decode_mha(q, k, v, lt)
+        second = decode_ops.decode_mha(q, k, v, lt)
+        torch.cuda.synchronize()
+        want, want_lse = decode_ref.decode_attention_ref(q, k, v, lt)
+        torch.testing.assert_close(first[0].float(), want.float(),
+                                   **DECODE_TOL[dtype])
+        torch.testing.assert_close(first[1], want_lse, **DECODE_TOL[dtype])
+        assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
 def test_splitk_backend_on_the_card_matches_the_cpu_oracle(cuda):
     q, k, v = _decode_operands(cuda, 2, 16, 8, 128, 128, torch.float32, seed=3)
     got = TorchSplitKAttention(device="cuda").decode(q[:, None], k, v, 77)
@@ -216,6 +248,49 @@ def test_flash_kernel_matches_plain(cuda, dtype, B, H, KV, Sq, Sk, D, causal):
     want = flash_ref.flash_attention_ref(q, k, v, causal=causal)
     assert got.dtype == dtype and got.shape == q.shape
     torch.testing.assert_close(got.float(), want.float(), **DECODE_TOL[dtype])
+
+
+# a bf16 output of a kernel that computes in fp32 and rounds once, against
+# the plain version on fp32-widened inputs (as chip_smoke.py holds it)
+ULP_TOL = dict(rtol=8e-3, atol=1e-4)
+# and the share of its elements equal to that version rounded to bf16: an
+# fp32 p·v misses it only by summation order, a p rounded to bf16 (as the
+# plain version in bf16 rounds it) in about 42% of the elements
+EXACT_SHARE = 0.98
+
+
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,D,causal", [
+    (1, 2, 2, 100, 100, 64, True),     # G 1, ragged: less than one tile
+    (2, 4, 2, 192, 192, 128, True),    # G 2, one and a half query tiles
+    (1, 8, 1, 100, 100, 128, True),    # G 8
+    (1, 4, 2, 96, 160, 64, False),     # non-causal, Sq != Sk
+    (1, 8, 1, 160, 96, 128, True),     # causal, Sq > Sk (top-left aligned)
+    (1, 4, 4, 300, 200, 64, False),    # both ragged, non-causal
+    (2, 16, 8, 64, 64, 128, True),     # one tile
+])
+def test_flash_tensor_core_kernel_matches_plain(cuda, B, H, KV, Sq, Sk, D,
+                                               causal):
+    """bf16 inputs run the wgmma kernel: against the plain version in bf16,
+    and against the plain version on fp32-widened inputs to one rounding
+    of the output, nearly every element equal to its bf16 rounding (p·v in
+    three exact bf16 pieces is the fp32 p·v)."""
+    gen = torch.Generator(device=cuda).manual_seed(Sq * 7 + Sk + D)
+    q, k, v = [torch.randn(shape, generator=gen, device=cuda,
+                           dtype=torch.bfloat16)
+               for shape in ((B, H, Sq, D), (B, KV, Sk, D), (B, KV, Sk, D))]
+    n0 = flash_ops.LAUNCHES["flash_attention"]
+    got = flash_ops.mha(q, k, v, causal=causal, block_q=Sq, block_k=Sk)
+    torch.cuda.synchronize()
+    assert flash_ops.LAUNCHES["flash_attention"] == n0 + 1
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    want = flash_ref.flash_attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **DECODE_TOL[torch.bfloat16])
+    wide = flash_ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                         causal=causal)
+    torch.testing.assert_close(got.float(), wide, **ULP_TOL)
+    share = (got == wide.bfloat16()).float().mean().item()
+    assert share >= EXACT_SHARE, share
 
 
 def test_flash_wrapper_refuses_what_the_kernel_does_not_take(cuda):
