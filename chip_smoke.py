@@ -10,10 +10,14 @@ Run from the root of a checkout.  Phases, each printed as it ends:
    instructions in the flash library's SASS, which must be above 0;
 2. the BSR kernels against their plain PyTorch versions on the card, at the
    FSI path's shapes and data (GraphChallenge N = 65536, batch 128, 32x32
-   blocks, K up to 32; the fleet of P = 64 workers that ``run_fsi``
-   stacks), plus a ragged batch and a zero-count worker; tolerance 1e-5
-   (summation order); the fleet kernel must equal the per-worker kernel bit
-   for bit;
+   blocks; the fleet of P = 64 workers that ``run_fsi`` stacks), at one
+   layer of each block pattern: layer 0 (dense blocks, K 1), layer 1 (4
+   nonzeros a block row, K 8) and layer 2 (1 nonzero a block row, K 32),
+   plus a ragged batch and a zero-count worker; tolerance 1e-5 (summation
+   order); the fleet kernel must equal the per-worker kernel bit for bit;
+   both kernels are timed at each of the three layers beside their plain
+   versions, a ``torch.sparse_bsr_tensor`` product and the bound, which
+   counts one FMA a nonzero weight (``ops.layer_work``);
 3. the FSI path: ``run_fsi`` with the ``torch-bsr`` backend on the queue and
    object channels at P = 64 and on the serial channel, on an 8-layer cut of
    the N = 65536 GraphChallenge net; each output is held to 1e-4 of
@@ -58,7 +62,8 @@ Run from the root of a checkout.  Phases, each printed as it ends:
    the card picks the tokens the same engine picks on the CPU (batch 2,
    prompt 256, 4 new tokens; logits within 1e-3);
 8. one JSON line with each kernel's time, launches on its path, bound,
-   plain-version time and one library call's time.
+   plain-version time and one library call's time (the BSR kernels' at
+   layer 2, and at each timed layer under ``by_layer``).
 
 Times are medians of single calls between two CUDA events; below ~0.1 ms
 that is mostly the wrapper's host time, so the decode kernel at the serving
@@ -66,7 +71,8 @@ shape and the flash kernel at the prefill shape, and their library calls,
 are also timed per launch over 50 back-to-back launches between one pair
 of events, over 50 launches captured in one CUDA graph and replayed (the
 host's time per call left out), and by the device time per call that
-``torch.profiler`` sees.
+``torch.profiler`` sees; the BSR kernels at each timed layer back to back
+and from a CUDA graph, their library calls back to back.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 raises, and the script exits non-zero without printing it; it also exits
@@ -89,6 +95,9 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 N, BATCH, P, LAYERS, SEED = 65536, 128, 64, 8, 0
+# one layer of each block pattern: window offsets 0, 3 and 6, i.e. dense
+# blocks (K 1), 4 nonzeros a block row (K 8) and 1 (K 32)
+BSR_LAYERS = (0, 1, 2)
 TOL = dict(rtol=1e-5, atol=1e-5)
 E2E_TOL = dict(rtol=1e-4, atol=1e-4)
 DECODE_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
@@ -221,13 +230,9 @@ def graph_ms(fn, n: int = 50, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def burst_ms(fn, n: int = 50, reps: int = 5):
+def back_to_back_ms(fn, n: int = 50, reps: int = 5) -> float:
     """Per-launch time of ``n`` back-to-back calls between one pair of CUDA
-    events (median of ``reps`` bursts), ``graph_ms`` of ``n`` calls, and the
-    device time per call that ``torch.profiler`` sees over ``n`` more (None
-    where it sees none)."""
-    from torch.profiler import ProfilerActivity, profile
-
+    events (median of ``reps`` bursts)."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -241,6 +246,16 @@ def burst_ms(fn, n: int = 50, reps: int = 5):
         e1.record()
         e1.synchronize()
         times.append(e0.elapsed_time(e1) / n)
+    return statistics.median(times)
+
+
+def burst_ms(fn, n: int = 50, reps: int = 5):
+    """``back_to_back_ms`` of ``n`` calls, ``graph_ms`` of ``n`` calls, and
+    the device time per call that ``torch.profiler`` sees over ``n`` more
+    (None where it sees none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    burst = back_to_back_ms(fn, n, reps)
     graph = graph_ms(fn, n, reps)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
@@ -250,8 +265,7 @@ def burst_ms(fn, n: int = 50, reps: int = 5):
                          getattr(e, "self_cuda_time_total", 0.0))
                  for e in prof.key_averages()
                  if e.device_type == torch.autograd.DeviceType.CUDA)
-    return (statistics.median(times), graph,
-            dev_us / 1e3 / n if dev_us > 0 else None)
+    return burst, graph, dev_us / 1e3 / n if dev_us > 0 else None
 
 
 def fmt_ms(x) -> str:
@@ -295,20 +309,44 @@ def bsr_library_call(blocks, cols, counts, x, n_cols_blocks, bias, clip):
 
 def bound(blocks, cols, counts, b: int, peaks):
     """Least time for the layer op on this data: the larger of every byte
-    it needs once over HBM and every FMA it needs over the fp32 peak.  It
-    needs the real blocks (those below ``counts``; the rest are zero
-    padding), their column ids, the x block rows they reference, and y."""
-    p, nbr, k, bm, bn = blocks.shape
-    real = torch.arange(k, device=cols.device) < counts[..., None].long()
-    n_real = int(real.sum())
-    key = torch.arange(p, device=cols.device)[:, None, None] * (1 << 31) + cols.long()
-    x_blocks = int(torch.unique(key[real]).numel())
-    bytes_ = (n_real * (bm * bn + 1) + counts.numel() + x_blocks * bn * b
-              + p * nbr * bm * b) * 4
-    flops = 2.0 * n_real * bm * bn * b
+    it needs once over HBM and every FMA it needs (one a nonzero weight and
+    batch column) over the fp32 peak, as ``ops.layer_work`` counts them."""
+    from repro_torch.kernels.bsr_spmm.ops import layer_work
+
+    bytes_, flops = layer_work(blocks, cols, counts, b)
     t_bytes, t_ops = bytes_ / peaks[0] * 1e3, flops / peaks[1] * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
             bytes_, flops)
+
+
+def one_stage_fused(blocks, cols, x, bias):
+    """The fused BSR kernel built from the same source with ``kStages = 1``
+    (the same launch bounds): a call that writes its result into the
+    returned tensor, launched as the wrapper launches the ring.  Only the
+    ring depth sweep calls it."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.bsr_spmm import ops
+
+    text = ops._SOURCE.read_text()
+    ring = "constexpr int kStages = 2;"
+    check(text.count(ring) == 1, f"bsr_spmm.cu no longer declares {ring!r}")
+    src = ops._HERE / "build" / "one_stage" / "bsr_spmm.cu"
+    src.parent.mkdir(parents=True, exist_ok=True)
+    src.write_text(text.replace(ring, "constexpr int kStages = 1;"))
+    lib = _build.load(src, _build.library_path(src, src.parent, "lib.so"),
+                      ops._configure)
+    nbr, k, bm, bn = blocks.shape
+    n, b = x.shape
+    y = torch.empty((nbr * bm, b), dtype=torch.float32, device=x.device)
+
+    def call():
+        err = lib.bsr_spmm_fused_launch(
+            blocks.data_ptr(), cols.data_ptr(), x.data_ptr(), y.data_ptr(),
+            nbr, k, bm, bn, n, b, float(bias), 32.0,
+            torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"one-stage bsr_spmm_fused: CUDA error {err}")
+
+    return call, y
 
 
 def kernel_modules() -> dict:
@@ -341,8 +379,9 @@ def only(counts: dict, **want) -> dict:
 
 
 def fsi_phases(dev, peaks, card):
-    """Phases 2 and 3: the BSR kernels against their plain versions, then
-    ``run_fsi`` through them.  Returns (timing, launches, max errors)."""
+    """Phases 2 and 3: the BSR kernels against their plain versions at one
+    layer of each block pattern, then ``run_fsi`` through them.  Returns
+    (timing, launches, max errors)."""
     from repro_torch.core.backends import TorchBsrBackend
     from repro_torch.core.fsi import prepare_worker_artifacts
     from repro_torch.core.partitioner import partition_network
@@ -360,108 +399,175 @@ def fsi_phases(dev, peaks, card):
     t = time.time()
     net = make_sparse_dnn(N, n_layers=LAYERS, seed=SEED)
     x0 = make_inputs(N, BATCH, seed=1)
-    layer = 2  # window offset 6: K = 32 blocks in every row block
-    x_in = dense_inference(GraphChallengeNet(N, net.layers[:layer], net.bias), x0)
-    log(f"[data] net + inputs + layer-{layer} activations: {time.time() - t:.1f} s")
+    acts = [x0]  # each timed layer's input
+    for j in range(max(BSR_LAYERS)):
+        acts.append(dense_inference(
+            GraphChallengeNet(N, [net.layers[j]], net.bias), acts[-1]))
+    log(f"[data] net + inputs + activations of layers {BSR_LAYERS}: "
+        f"{time.time() - t:.1f} s")
 
     be = TorchBsrBackend(device="cuda")
-    bsr = bsr_from_csr(net.layers[layer], (32, 32), pad=True)
-    blocks_np, cols_np, counts_np = bsr.padded()
-    blocks = torch.from_numpy(blocks_np).to(dev)
-    cols = torch.from_numpy(cols_np).to(dev)
-    counts = torch.from_numpy(counts_np.astype(np.int32)).to(dev)
-    x = torch.from_numpy(np.ascontiguousarray(x_in, np.float32)).to(dev)
-    nbr, k = blocks_np.shape[:2]
-    log(f"[kernels] serial layer {layer}: blocks [{nbr},{k},32,32] "
-        f"({blocks_np.nbytes / 1e6:.0f} MB), x [{N},{BATCH}], "
-        f"{int(counts_np.sum())} real blocks of {nbr * k}, "
-        f"{net.layers[layer].nnz} nonzeros")
-    y_k = ops.bsr_spmm(blocks, cols, x, bias=net.bias)
-    y_p = ref.bsr_spmm_fused_ref(blocks, cols, x, net.bias)
-    err_fused = [compare("fused vs plain", y_k, y_p)]
-
     t = time.time()
     partition = partition_network(net.layers, P, method="hgp", seed=SEED)
     plans = build_comm_plans(net.layers, partition)
     arts = prepare_worker_artifacts(net.layers, partition, plans, backend=be)
-    fleet = be.fleet_prepare_all(
+    fleets = be.fleet_prepare_all(
         [[arts[m].layers[j].state_for(be) for m in range(P)]
-         for j in range(LAYERS)])[layer]
-    X = np.zeros((P, fleet.n_pad, BATCH), np.float32)
-    for m in range(P):
-        rows = arts[m].layers[layer].needed_rows
-        X[m, : len(rows)] = x_in[rows]
-    fx = torch.from_numpy(X).to(dev)
-    log(f"[kernels] fleet layer {layer} (partition + artifacts "
-        f"{time.time() - t:.1f} s): blocks {list(fleet.blocks.shape)} "
-        f"({fleet.blocks.numel() * 4 / 1e6:.0f} MB), x {list(fx.shape)}, "
-        f"{int(fleet.counts.sum())} real blocks of "
-        f"{fleet.counts.numel() * fleet.blocks.shape[2]}")
-    fy_k = ops.bsr_spmm_fleet(fleet.blocks, fleet.cols, fleet.counts, fx,
-                              bias=net.bias)
-    fy_p = ref.bsr_spmm_fleet_ref(fleet.blocks, fleet.cols, fleet.counts, fx,
-                                  net.bias)
-    err_fleet = [compare("fleet vs plain", fy_k, fy_p)]
-    for m in range(P):
-        per = ops.bsr_spmm(fleet.blocks[m], fleet.cols[m], fx[m], bias=net.bias)
-        check(torch.equal(per, fy_k[m]), f"fleet != per-worker for worker {m}")
-    log(f"  fleet == per-worker kernel, bitwise, for all {P} workers")
+         for j in range(LAYERS)])
+    # a layer's block pattern: the most nonzeros in one row of one block
+    pattern = [int((f.blocks != 0).sum(-1).max()) for f in fleets]
+    log(f"[kernels] partition + artifacts + fleets: {time.time() - t:.1f} s; "
+        f"nonzeros a block row by layer {pattern}")
 
-    # ragged: batch not a multiple of the 128-column tile, a zero-count worker
-    g = np.random.default_rng(SEED)
-    rb = 200
-    rblocks = torch.cat([fleet.blocks[:3], torch.zeros_like(fleet.blocks[:1])])
-    rcols = torch.cat([fleet.cols[:3], torch.zeros_like(fleet.cols[:1])])
-    rcounts = torch.cat([fleet.counts[:3], torch.zeros_like(fleet.counts[:1])])
-    rx = torch.from_numpy(g.uniform(0, 2, (4, fleet.n_pad, rb))
-                          .astype(np.float32)).to(dev)
-    ry_k = ops.bsr_spmm_fleet(rblocks, rcols, rcounts, rx, bias=net.bias)
-    err_fleet.append(compare(
-        "ragged fleet (batch 200, zero-count worker) vs plain", ry_k,
-        ref.bsr_spmm_fleet_ref(rblocks, rcols, rcounts, rx, net.bias)))
-    check(torch.equal(ry_k[3], torch.zeros_like(ry_k[3])),
-          "zero-count worker produced nonzero output")
-    for m in range(4):
-        per = ops.bsr_spmm(rblocks[m], rcols[m], rx[m], bias=net.bias)
-        check(torch.equal(per, ry_k[m]), f"ragged fleet != per-worker for worker {m}")
-        err_fused.append(compare(
-            f"ragged fused worker {m} vs plain", per,
-            ref.bsr_spmm_fused_ref(rblocks[m], rcols[m], rx[m], net.bias)))
-    log("  ragged fleet == per-worker kernel, bitwise")
+    err_fused, err_fleet, by_layer = [], [], []
+    for layer in BSR_LAYERS:
+        x_in = acts[layer]
+        bsr = bsr_from_csr(net.layers[layer], (32, 32), pad=True)
+        blocks_np, cols_np, counts_np = bsr.padded()
+        blocks = torch.from_numpy(blocks_np).to(dev)
+        cols = torch.from_numpy(cols_np).to(dev)
+        counts = torch.from_numpy(counts_np.astype(np.int32)).to(dev)
+        x = torch.from_numpy(np.ascontiguousarray(x_in, np.float32)).to(dev)
+        nbr, k = blocks_np.shape[:2]
+        log(f"[kernels] layer {layer}, serial: blocks [{nbr},{k},32,32] "
+            f"({blocks_np.nbytes / 1e6:.0f} MB), x [{N},{BATCH}], "
+            f"{int(counts_np.sum())} real blocks of {nbr * k}, "
+            f"{net.layers[layer].nnz} nonzeros, {pattern[layer]} a block row")
+        y_k = ops.bsr_spmm(blocks, cols, x, bias=net.bias)
+        y_p = ref.bsr_spmm_fused_ref(blocks, cols, x, net.bias)
+        err_fused.append(compare(f"layer {layer} fused vs plain", y_k, y_p))
 
-    # timings at the main-path shapes
+        fleet = fleets[layer]
+        X = np.zeros((P, fleet.n_pad, BATCH), np.float32)
+        for m in range(P):
+            rows = arts[m].layers[layer].needed_rows
+            X[m, : len(rows)] = x_in[rows]
+        fx = torch.from_numpy(X).to(dev)
+        log(f"[kernels] layer {layer}, fleet: blocks "
+            f"{list(fleet.blocks.shape)} "
+            f"({fleet.blocks.numel() * 4 / 1e6:.0f} MB), x {list(fx.shape)}, "
+            f"{int(fleet.counts.sum())} real blocks of "
+            f"{fleet.counts.numel() * fleet.blocks.shape[2]}")
+        fy_k = ops.bsr_spmm_fleet(fleet.blocks, fleet.cols, fleet.counts, fx,
+                                  bias=net.bias)
+        fy_p = ref.bsr_spmm_fleet_ref(fleet.blocks, fleet.cols, fleet.counts,
+                                      fx, net.bias)
+        err_fleet.append(compare(f"layer {layer} fleet vs plain", fy_k, fy_p))
+        for m in range(P):
+            per = ops.bsr_spmm(fleet.blocks[m], fleet.cols[m], fx[m],
+                               bias=net.bias)
+            check(torch.equal(per, fy_k[m]),
+                  f"layer {layer}: fleet != per-worker for worker {m}")
+        log(f"  layer {layer}: fleet == per-worker kernel, bitwise, for all "
+            f"{P} workers")
+        del y_p, fy_p
+
+        if layer == BSR_LAYERS[-1]:
+            # ragged: batch not a multiple of the 128-column tile, a
+            # zero-count worker
+            g = np.random.default_rng(SEED)
+            rb = 200
+            rblocks = torch.cat([fleet.blocks[:3],
+                                 torch.zeros_like(fleet.blocks[:1])])
+            rcols = torch.cat([fleet.cols[:3], torch.zeros_like(fleet.cols[:1])])
+            rcounts = torch.cat([fleet.counts[:3],
+                                 torch.zeros_like(fleet.counts[:1])])
+            rx = torch.from_numpy(g.uniform(0, 2, (4, fleet.n_pad, rb))
+                                  .astype(np.float32)).to(dev)
+            ry_k = ops.bsr_spmm_fleet(rblocks, rcols, rcounts, rx,
+                                      bias=net.bias)
+            err_fleet.append(compare(
+                "ragged fleet (batch 200, zero-count worker) vs plain", ry_k,
+                ref.bsr_spmm_fleet_ref(rblocks, rcols, rcounts, rx, net.bias)))
+            check(torch.equal(ry_k[3], torch.zeros_like(ry_k[3])),
+                  "zero-count worker produced nonzero output")
+            for m in range(4):
+                per = ops.bsr_spmm(rblocks[m], rcols[m], rx[m], bias=net.bias)
+                check(torch.equal(per, ry_k[m]),
+                      f"ragged fleet != per-worker for worker {m}")
+                err_fused.append(compare(
+                    f"ragged fused worker {m} vs plain", per,
+                    ref.bsr_spmm_fused_ref(rblocks[m], rcols[m], rx[m],
+                                           net.bias)))
+            log("  ragged fleet == per-worker kernel, bitwise")
+            del rblocks, rcols, rcounts, rx, ry_k
+
+        # timings at this layer's shapes
+        path_layers = pattern.count(pattern[layer])
+        for kname, kern, plain, operands, y_ref in (
+            ("bsr_spmm_fused",
+             lambda: ops.bsr_spmm(blocks, cols, x, bias=net.bias),
+             lambda: ref.bsr_spmm_fused_ref(blocks, cols, x, net.bias),
+             (blocks[None], cols[None], counts[None], x[None], N // 32), y_k),
+            ("bsr_spmm_fleet",
+             lambda: ops.bsr_spmm_fleet(fleet.blocks, fleet.cols,
+                                        fleet.counts, fx, bias=net.bias),
+             lambda: ref.bsr_spmm_fleet_ref(fleet.blocks, fleet.cols,
+                                            fleet.counts, fx, net.bias),
+             (fleet.blocks, fleet.cols, fleet.counts, fx, fleet.n_pad // 32),
+             fy_k),
+        ):
+            ms, plain_ms = time_ms(kern), time_ms(plain)
+            k_burst, k_graph = back_to_back_ms(kern), graph_ms(kern)
+            lib_ms = lib_burst = lib_err = None
+            try:
+                call, y_lib = bsr_library_call(*operands, net.bias, be.clip)
+                lib_ms, lib_burst = time_ms(call), back_to_back_ms(call)
+                lib_err = (y_lib.reshape(y_ref.shape) - y_ref).abs().max().item()
+                del call, y_lib
+            except (RuntimeError, NotImplementedError, ValueError,
+                    TypeError) as e:
+                log(f"  {kname}: library call refused: {type(e).__name__}: {e}")
+            b_ms, b_by, nbytes, flops = bound(*operands[:3], BATCH, peaks)
+            by_layer.append(dict(
+                name=kname, layer=layer, k=int(operands[0].shape[2]),
+                nonzeros_a_block_row=pattern[layer], path_layers=path_layers,
+                ms=ms, burst_ms=k_burst, graph_ms=k_graph, plain_ms=plain_ms,
+                library_ms=lib_ms, library_burst_ms=lib_burst, bound_ms=b_ms,
+                bound_by=b_by))
+            log(f"[time] {kname} layer {layer} (K {operands[0].shape[2]}, "
+                f"{pattern[layer]} nonzeros a block row, {path_layers} of the "
+                f"{LAYERS} path layers): kernel {ms:.4f} ms a single call, "
+                f"{k_burst:.4f} back to back, {k_graph:.4f} from a CUDA graph; "
+                f"plain {plain_ms:.4f} ms; library {fmt_ms(lib_ms)} ms, "
+                f"{fmt_ms(lib_burst)} back to back (max |library - kernel| "
+                f"{lib_err}); bound "
+                f"{b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.1f} MB, "
+                f"{flops / 1e9:.3f} GFLOP; from the graph {nbytes / k_graph / 1e9:.3f}"
+                f" TB/s, {flops / k_graph / 1e9:.2f} TFLOP/s, "
+                f"{k_graph / b_ms:.2f}x the bound) on {card}")
+        # the ring's depth: the kernel against a one-stage build of its
+        # source, from CUDA graphs in the order ring, one, one, ring
+        one_stage, y_one = one_stage_fused(blocks, cols, x, net.bias)
+        one_stage()
+        torch.cuda.synchronize()
+        check(torch.equal(y_one, y_k), f"layer {layer}: one-stage != ring")
+        depth = {"ring": [], "one_stage": []}
+        for tag in ("ring", "one_stage", "one_stage", "ring"):
+            depth[tag].append(graph_ms(
+                one_stage if tag == "one_stage"
+                else lambda: ops.bsr_spmm(blocks, cols, x, bias=net.bias)))
+        fused_row = [r for r in by_layer if r["name"] == "bsr_spmm_fused"][-1]
+        fused_row.update(ring_graph_ms=depth["ring"],
+                         one_stage_graph_ms=depth["one_stage"])
+        log(f"[sweep] bsr_spmm_fused layer {layer} ring depth, ms a launch "
+            f"from a CUDA graph: 2 stages {depth['ring']}, 1 stage "
+            f"{depth['one_stage']} (bitwise equal) on {card}")
+        del blocks, cols, counts, x, fx, y_k, fy_k, one_stage, y_one
+        torch.cuda.empty_cache()
+
+    # the JSON line's numbers: the last timed layer (K 32, the most blocks)
+    # and every timed layer under by_layer
     timing = {}
-    for kname, kern, plain, operands in (
-        ("bsr_spmm_fused",
-         lambda: ops.bsr_spmm(blocks, cols, x, bias=net.bias),
-         lambda: ref.bsr_spmm_fused_ref(blocks, cols, x, net.bias),
-         (blocks[None], cols[None], counts[None], x[None], N // 32)),
-        ("bsr_spmm_fleet",
-         lambda: ops.bsr_spmm_fleet(fleet.blocks, fleet.cols, fleet.counts, fx,
-                                    bias=net.bias),
-         lambda: ref.bsr_spmm_fleet_ref(fleet.blocks, fleet.cols, fleet.counts,
-                                        fx, net.bias),
-         (fleet.blocks, fleet.cols, fleet.counts, fx, fleet.n_pad // 32)),
-    ):
-        ms, plain_ms = time_ms(kern), time_ms(plain)
-        lib_ms, lib_err = None, None
-        try:
-            call, y_lib = bsr_library_call(*operands, net.bias, be.clip)
-            lib_ms = time_ms(call)
-            y_ref = y_k if kname == "bsr_spmm_fused" else fy_k
-            lib_err = (y_lib.reshape(y_ref.shape) - y_ref).abs().max().item()
-            del call, y_lib
-        except (RuntimeError, NotImplementedError, ValueError, TypeError) as e:
-            log(f"  {kname}: library call refused: {type(e).__name__}: {e}")
-        b_ms, b_by, nbytes, flops = bound(*operands[:3], BATCH, peaks)
-        timing[kname] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                             bound_ms=b_ms, bound_by=b_by)
-        log(f"[time] {kname}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"library {lib_ms if lib_ms is None else f'{lib_ms:.4f}'} ms "
-            f"(max |library - kernel| {lib_err}), bound {b_ms:.4f} ms by "
-            f"{b_by} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP; "
-            f"{flops / ms / 1e9:.2f} TFLOP/s achieved) on {card}")
-    del y_p, fy_p
+    for kname in ("bsr_spmm_fused", "bsr_spmm_fleet"):
+        rows = [r for r in by_layer if r["name"] == kname]
+        timing[kname] = {key: rows[-1][key] for key in
+                         ("ms", "burst_ms", "graph_ms", "plain_ms",
+                          "library_ms", "library_burst_ms", "bound_ms",
+                          "bound_by")}
+        timing[kname]["by_layer"] = [
+            {key: v for key, v in r.items() if key != "name"} for r in rows]
+    del fleets
     torch.cuda.empty_cache()
 
     # ---- 3. the FSI path -------------------------------------------------
@@ -1339,7 +1445,7 @@ def build_all():
         log(f"[build] {name} -> {mod.library_path().parent.name}: "
             f"{took[name]:.2f} s")
         for line in (mod.library_path().parent / "nvcc.log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if "entry function" in line or "registers" in line or "spill" in line:
                 log(f"  ptxas: {line.strip()}")
     log(f"[build] all libraries: {time.time() - t:.2f} s")
     from repro_torch.kernels import _build

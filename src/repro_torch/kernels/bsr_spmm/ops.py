@@ -11,11 +11,18 @@ clip)``.  A tensor on the CPU goes to the plain version in ``ref.py``; a
 CUDA tensor goes to the kernel, or the wrapper raises.  There is no fallback
 from one to the other.
 
+``x`` must be finite (the FSI's is clipped to [0, 32]): the kernels skip
+zero weights, so where the plain version turns a ``0 * inf`` into NaN the
+kernel's sum stays finite.  On finite operands the two agree to 1e-5 and
+the fleet kernel equals the per-worker kernel bit for bit.
+
 The kernels are compiled with ``nvcc`` for ``sm_90a`` at first use into a
 shared library with a plain C interface, under ``build/<hash of the
 sources and flags>/`` beside this file, and loaded with ``ctypes``.
 ``LAUNCHES`` counts each kernel's launches (never the plain versions' calls),
-so a caller can show that a run went through the kernels.
+so a caller can show that a run went through the kernels.  ``layer_work``
+counts the bytes and FLOPs that one layer op needs on given operands, for a
+roofline bound.
 """
 
 from __future__ import annotations
@@ -29,8 +36,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.bsr_spmm.ref import bsr_spmm_fleet_ref, bsr_spmm_fused_ref
 
-__all__ = ["bsr_spmm", "bsr_spmm_fleet", "LAUNCHES", "MAX_BLOCK",
-           "load_library", "library_path"]
+__all__ = ["bsr_spmm", "bsr_spmm_fleet", "layer_work", "LAUNCHES",
+           "MAX_BLOCK", "load_library", "library_path"]
 
 LAUNCHES = {"bsr_spmm_fused": 0, "bsr_spmm_fleet": 0}
 MAX_BLOCK = 32  # largest bm and bn the kernels are written for
@@ -100,7 +107,8 @@ def _launch(fn_name: str, device: torch.device, *args) -> None:
 
 def bsr_spmm(blocks: torch.Tensor, cols: torch.Tensor, x: torch.Tensor, *,
              bias: float, clip: float = 32.0) -> torch.Tensor:
-    """One worker-layer on ``x``'s device (see the module docstring)."""
+    """One worker-layer on ``x``'s device (see the module docstring; ``x``
+    must be finite)."""
     dev = x.device
     _check("x", x, torch.float32, 2, dev)
     _check("blocks", blocks, torch.float32, 4, dev)
@@ -127,7 +135,8 @@ def bsr_spmm(blocks: torch.Tensor, cols: torch.Tensor, x: torch.Tensor, *,
 def bsr_spmm_fleet(blocks: torch.Tensor, cols: torch.Tensor,
                    counts: torch.Tensor, x: torch.Tensor, *, bias: float,
                    clip: float = 32.0) -> torch.Tensor:
-    """The whole fleet's layer on ``x``'s device (see the module docstring)."""
+    """The whole fleet's layer on ``x``'s device (see the module docstring;
+    ``x`` must be finite)."""
     dev = x.device
     _check("x", x, torch.float32, 3, dev)
     _check("blocks", blocks, torch.float32, 5, dev)
@@ -154,3 +163,29 @@ def bsr_spmm_fleet(blocks: torch.Tensor, cols: torch.Tensor,
             n, b, float(bias), float(clip))
     LAUNCHES["bsr_spmm_fleet"] += 1
     return y
+
+
+def layer_work(blocks: torch.Tensor, cols: torch.Tensor, counts: torch.Tensor,
+               b: int) -> tuple[int, int]:
+    """``(bytes, flops)`` that the layer op needs on these operands at batch
+    ``b``: the fleet layout (``blocks [P,NBR,K,bm,bn]``, ``cols [P,NBR,K]``,
+    ``counts [P,NBR]``) or one worker's (one dim fewer each).
+
+    Bytes: each real block (the slots below ``counts``; the rest are zero
+    padding) and its column id, ``counts``, each x block row that a real
+    block references and y, once each, in fp32 and int32.  FLOPs: one FMA
+    (2 FLOPs) a batch column for each nonzero weight of the real blocks;
+    the zeros inside a block need none.
+    """
+    if blocks.dim() == 4:
+        blocks, cols, counts = blocks[None], cols[None], counts[None]
+    p, nbr, k, bm, bn = blocks.shape
+    real = torch.arange(k, device=cols.device) < counts[..., None].long()
+    n_real = int(real.sum())
+    key = (torch.arange(p, device=cols.device)[:, None, None] * (1 << 31)
+           + cols.long())
+    x_blocks = int(torch.unique(key[real]).numel())
+    nbytes = (n_real * (bm * bn + 1) + counts.numel() + x_blocks * bn * b
+              + p * nbr * bm * b) * 4
+    nnz = int(torch.count_nonzero(blocks, dim=(-2, -1))[real].sum())
+    return nbytes, 2 * nnz * b

@@ -104,6 +104,60 @@ def test_fleet_kernel_matches_plain_and_per_worker(cuda, fleet):
     assert torch.equal(got[-1], torch.zeros_like(got[-1]))
 
 
+def _pattern_fleet(kind, k, bm, bn, batch, device, seed):
+    """A fleet of 3 workers x 5 row blocks of signed ``kind`` weights: dense
+    blocks, 4 nonzeros a block row, 1 (the GraphChallenge patterns), or
+    random zeros with all-zero block rows.  Random counts, worker 2 with
+    none; the slots past a row's count are zero, as the padded layout
+    leaves them.  Signed x [3, 7*bn, batch]."""
+    g = np.random.default_rng(seed)
+    p, nbr, nbc = 3, 5, 7
+    w = g.standard_normal((p, nbr, k, bm, bn))
+    i, j = np.arange(bm)[:, None], np.arange(bn)[None, :]
+    if kind == "four-a-row":
+        keep = np.broadcast_to(j % 8 == i % 8, w.shape)
+    elif kind == "one-a-row":
+        keep = np.broadcast_to(j == i % bn, w.shape)
+    elif kind == "random":
+        keep = g.random(w.shape) < 0.3
+        keep &= g.random(w.shape[:-1] + (1,)) < 0.7   # all-zero block rows
+    else:
+        keep = np.ones(w.shape, bool)
+    counts = g.integers(0, k + 1, (p, nbr))
+    counts[-1] = 0
+    keep = keep & (np.arange(k)[:, None, None] < counts[..., None, None, None])
+    blocks = np.where(keep, w, 0.0).astype(np.float32)
+    cols = g.integers(0, nbc, (p, nbr, k)).astype(np.int32)
+    x = g.standard_normal((p, nbc * bn, batch)).astype(np.float32)
+    return [torch.from_numpy(a).to(device) for a in
+            (blocks, cols, counts.astype(np.int32), x)]
+
+
+@pytest.mark.parametrize("batch", [24, 200])
+@pytest.mark.parametrize("bm,bn", [(32, 32), (20, 12), (7, 5)])
+@pytest.mark.parametrize("k", [1, 6])
+@pytest.mark.parametrize("kind", ["dense", "four-a-row", "one-a-row",
+                                  "random"])
+def test_zero_skipping_kernels_on_every_block_pattern(cuda, kind, k, bm, bn,
+                                                      batch):
+    """Both kernels against their plain versions, and the fleet against the
+    per-worker kernel bit for bit, with signed inputs, ragged blocks (bn 12
+    takes 16-byte copies, bn 5 4-byte ones), K 1 (the ring's second stage
+    stays empty) and K 6, and a zero-count worker."""
+    blocks, cols, counts, x = _pattern_fleet(kind, k, bm, bn, batch, cuda,
+                                             seed=k * 1000 + bm * 10 + batch)
+    bias = 0.1 if batch == 24 else -0.3
+    got = ops.bsr_spmm_fleet(blocks, cols, counts, x, bias=bias)
+    torch.testing.assert_close(
+        got, ref.bsr_spmm_fleet_ref(blocks, cols, counts, x, bias), **TOL)
+    for p in range(x.shape[0]):
+        per = ops.bsr_spmm(blocks[p], cols[p], x[p], bias=bias)
+        assert torch.equal(per, got[p])
+        torch.testing.assert_close(
+            per, ref.bsr_spmm_fused_ref(blocks[p], cols[p], x[p], bias), **TOL)
+    assert torch.equal(got[-1], torch.full_like(got[-1], max(bias, 0.0)))
+
+
 def test_backend_apply_on_the_card_matches_cpu(cuda):
     W = make_sparse_dnn(1024, n_layers=1, seed=0).layers[0]
     x = make_inputs(1024, 128, seed=1)
