@@ -65,11 +65,26 @@
 // at most 2^-150, half the least subnormal): then the walks may differ in
 // the sign of a zero, which the epilogue erases (every zero and negative sum
 // stores +0).
-// So y is equal bit for bit.  The limit: with an Inf or NaN in x, a skipped
-// 0*Inf no longer turns the sum into NaN.  The FSI's x is clipped to [0, 32].
-// The same argument makes the fleet kernel (which stops at counts) equal to
-// the per-worker kernel (which walks all K): the padding blocks past a row's
-// count are all zero, so their masks are empty and they add no term at all.
+// So y is equal bit for bit.  The same argument makes the fleet kernel
+// (which stops at counts) equal to the per-worker kernel (which walks all
+// K): the padding blocks past a row's count are all zero, so their masks
+// are empty and they add no term at all.
+//
+// Non-finite x.  A skipped 0 * Inf or 0 * NaN is the one term whose value is
+// not +-0: the dense walk's sum becomes NaN there, and so do the plain
+// versions'.  So when block k's x slice lands in the ring, each thread
+// tests the 16 values it copied (v * 0 is NaN only for an Inf or NaN v),
+// and the barrier the ring takes anyway (__syncthreads_or) ORs the tests
+// over the block.  Where a slice holds one, every warp walks block k
+// densely: every j in ascending order for every row, the dense walk's own
+// terms, so the sums are the dense walk's, NaN included; on lanes whose
+// x is finite that is still the same bits as the skipping walk.  The
+// epilogue keeps a NaN (fmaxf/fminf would turn it into 0 or the clip).
+// Finite x never takes the dense walk: its bits are as before.  The fleet
+// kernel never stages the padding slots past a row's count, which the
+// plain versions multiply (their all-zero weights over column block 0 of
+// x): with an Inf or NaN in column block 0 the two differ there, as the
+// reference's count-bounded and dense lowerings differ from each other.
 //
 // Why no tensor cores.  With one nonzero a block row, a wgmma tile would
 // multiply 31 zeros for each useful term, and the useful arithmetic is 8 us
@@ -183,15 +198,42 @@ __device__ __forceinline__ void fma4(float w, const float4& x, float4& acc) {
 
 __device__ __forceinline__ float epilogue(float acc, float bias, float clip) {
   const float v = acc + bias;
+  if (v != v) return v;                      // NaN stays NaN, as in clamp
   return fminf(v > 0.0f ? v : 0.0f, clip);   // every zero stores +0
+}
+
+// Whether one of the 16 x values this thread copied into a stage (see
+// copy_block) is an Inf or a NaN: fmaf(v, 0, a) turns only those into NaN.
+// Four independent sums keep the chain after the loads short.
+template <bool Vec>
+__device__ __forceinline__ bool copied_x_nonfinite(const float* xs) {
+  constexpr int kN = kBlk * kTileB / kThreads;   // 16
+  float a[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int m = 0; m < kN / 4; ++m) {
+    float4 v;
+    if (Vec) {
+      v = reinterpret_cast<const float4*>(xs)[threadIdx.x + m * kThreads];
+    } else {
+      const float* p = xs + threadIdx.x + 4 * m * kThreads;
+      v = make_float4(p[0], p[kThreads], p[2 * kThreads], p[3 * kThreads]);
+    }
+    a[0] = __fmaf_rn(v.x, 0.0f, a[0]);
+    a[1] = __fmaf_rn(v.y, 0.0f, a[1]);
+    a[2] = __fmaf_rn(v.z, 0.0f, a[2]);
+    a[3] = __fmaf_rn(v.w, 0.0f, a[3]);
+  }
+  const float t = __fadd_rn(__fadd_rn(a[0], a[1]), __fadd_rn(a[2], a[3]));
+  return t != t;
 }
 
 // Block k's terms for the warp's rows (see the note at the top): ws the
 // block's weights [32][32], xs its x slice [32][32 float4].  Warp w owns rows
 // w, w + 8, w + 16 and w + 24, which share their columns at window offset 3,
-// so there the warp loads 4 rows of x a block, not 16.
+// so there the warp loads 4 rows of x a block, not 16.  With `dense` (an
+// Inf or NaN in the slice) every row takes every j.
 __device__ __forceinline__ void walk_block(const float* ws, const float4* xs,
-                                           int warp, int lane,
+                                           int warp, int lane, bool dense,
                                            float4 (&acc)[kRows]) {
   float w[kRows];
   unsigned mask[kRows];
@@ -199,7 +241,7 @@ __device__ __forceinline__ void walk_block(const float* ws, const float4* xs,
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     w[r] = ws[(r * kWarps + warp) * kBlk + lane];
-    mask[r] = __ballot_sync(kFull, w[r] != 0.0f);
+    mask[r] = dense ? kFull : __ballot_sync(kFull, w[r] != 0.0f);
     any |= mask[r];
   }
   bool same = true;
@@ -264,10 +306,13 @@ __device__ __forceinline__ void bsr_row_block(
   for (int kk = 0; kk < k_end; ++kk) {
     issue(kk + kStages - 1);
     cp_wait<kStages - 1>();            // block kk's copies, this thread's
-    __syncthreads();             // and every thread's
     const float* ws = smem + (kk % kStages) * kStageFloats;
+    // every thread's copies, and whether one of them put an Inf or a NaN
+    // into the x slice
+    const bool dense =
+        __syncthreads_or(copied_x_nonfinite<Vec>(ws + kBlk * kBlk)) != 0;
     walk_block(ws, reinterpret_cast<const float4*>(ws + kBlk * kBlk), warp,
-               lane, acc);
+               lane, dense, acc);
     __syncthreads();             // the stage is free for block kk + kStages
   }
 

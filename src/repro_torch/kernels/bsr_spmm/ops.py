@@ -11,10 +11,16 @@ clip)``.  A tensor on the CPU goes to the plain version in ``ref.py``; a
 CUDA tensor goes to the kernel, or the wrapper raises.  There is no fallback
 from one to the other.
 
-``x`` must be finite (the FSI's is clipped to [0, 32]): the kernels skip
-zero weights, so where the plain version turns a ``0 * inf`` into NaN the
-kernel's sum stays finite.  On finite operands the two agree to 1e-5 and
-the fleet kernel equals the per-worker kernel bit for bit.
+The kernels skip zero weights, except in a block whose x slice holds an
+Inf or a NaN: that block is walked over every term, so an output is NaN
+exactly where the plain version's is (a ``0 * inf`` or a NaN among its
+terms).  The one exception is the fleet kernel's padding slots past a
+row's count, which it never reads and the plain version multiplies (all
+zero, over column block 0 of x): with an Inf or NaN in x's first ``bn``
+rows the fleet kernel leaves out those ``0 * inf`` terms, as the
+reference's count-bounded Pallas body does.  On finite operands the
+kernels agree with the plain versions to 1e-5 and the fleet kernel equals
+the per-worker kernel bit for bit.
 
 The kernels are compiled with ``nvcc`` for ``sm_90a`` at first use into a
 shared library with a plain C interface, under ``build/<hash of the
@@ -107,8 +113,7 @@ def _launch(fn_name: str, device: torch.device, *args) -> None:
 
 def bsr_spmm(blocks: torch.Tensor, cols: torch.Tensor, x: torch.Tensor, *,
              bias: float, clip: float = 32.0) -> torch.Tensor:
-    """One worker-layer on ``x``'s device (see the module docstring; ``x``
-    must be finite)."""
+    """One worker-layer on ``x``'s device (see the module docstring)."""
     dev = x.device
     _check("x", x, torch.float32, 2, dev)
     _check("blocks", blocks, torch.float32, 4, dev)
@@ -135,8 +140,7 @@ def bsr_spmm(blocks: torch.Tensor, cols: torch.Tensor, x: torch.Tensor, *,
 def bsr_spmm_fleet(blocks: torch.Tensor, cols: torch.Tensor,
                    counts: torch.Tensor, x: torch.Tensor, *, bias: float,
                    clip: float = 32.0) -> torch.Tensor:
-    """The whole fleet's layer on ``x``'s device (see the module docstring;
-    ``x`` must be finite)."""
+    """The whole fleet's layer on ``x``'s device (see the module docstring)."""
     dev = x.device
     _check("x", x, torch.float32, 3, dev)
     _check("blocks", blocks, torch.float32, 5, dev)

@@ -12,7 +12,8 @@ must equal the per-worker kernel bit for bit.  The decode kernel is held to
 the flash kernel, whose bf16 tensor-core path is also held to rtol 8e-3,
 atol 1e-4 against the plain version on fp32-widened inputs; the SSD
 kernel's y is held to the same, its final state to five times that, as the
-reference holds the TPU kernel.
+reference holds the TPU kernel, and in bf16 its state also to 1e-4 and 98%
+of y to the plain y rounded to bf16 (its products are exact).
 """
 
 import numpy as np
@@ -156,6 +157,39 @@ def test_zero_skipping_kernels_on_every_block_pattern(cuda, kind, k, bm, bn,
         torch.testing.assert_close(
             per, ref.bsr_spmm_fused_ref(blocks[p], cols[p], x[p], bias), **TOL)
     assert torch.equal(got[-1], torch.full_like(got[-1], max(bias, 0.0)))
+
+
+@pytest.mark.parametrize("kind", ["dense", "four-a-row", "one-a-row",
+                                  "random"])
+def test_kernels_give_nan_where_the_plain_versions_do(cuda, kind):
+    """Inf, -Inf and NaN in x's column blocks 1 and up (the padding slots
+    reference column block 0, as the padded layout leaves them): both
+    kernels against their plain versions, NaN in the same places and the
+    rest at 1e-5, and the fleet still equal to the per-worker kernel.
+    Weights and x are non-negative, as the FSI's are, so that the finite
+    sums do not cancel below the tolerance's scale."""
+    blocks, cols, counts, x = _pattern_fleet(kind, 6, 32, 32, 200, cuda,
+                                             seed=11)
+    blocks, x = blocks.abs(), x.abs()
+    pad = torch.arange(blocks.shape[2], device=cuda) >= counts[..., None]
+    cols = torch.where(pad, torch.zeros_like(cols), cols)
+    g = np.random.default_rng(3)
+    for val in (float("inf"), float("-inf"), float("nan")):
+        for _ in range(4):
+            x[g.integers(0, x.shape[0]), g.integers(32, x.shape[1]),
+              g.integers(0, x.shape[2])] = val
+    got = ops.bsr_spmm_fleet(blocks, cols, counts, x, bias=BIAS)
+    want = ref.bsr_spmm_fleet_ref(blocks, cols, counts, x, BIAS)
+    assert bool(want.isnan().any())
+    assert torch.equal(got.isnan(), want.isnan())
+    torch.testing.assert_close(got, want, equal_nan=True, **TOL)
+    for p in range(x.shape[0]):
+        per = ops.bsr_spmm(blocks[p], cols[p], x[p], bias=BIAS)
+        assert torch.equal(per.isnan(), got[p].isnan())
+        assert torch.equal(per.nan_to_num(), got[p].nan_to_num())
+        want = ref.bsr_spmm_fused_ref(blocks[p], cols[p], x[p], BIAS)
+        assert torch.equal(per.isnan(), want.isnan())
+        torch.testing.assert_close(per, want, equal_nan=True, **TOL)
 
 
 def test_backend_apply_on_the_card_matches_cpu(cuda):
@@ -370,6 +404,10 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     (2, 6, 3, 96, 32, 64, 48),       # a chunk that is no multiple of 64
     (1, 2, 1, 64, 16, 8, 32),
     (2, 4, 2, 512, 64, 128, 256),    # mamba2-370m's widths
+    (1, 2, 1, 4096, 64, 128, 256),   # 16 chunks, two (b, h) pairs
+    (1, 8, 2, 1024, 64, 128, 256),   # 4 heads a group
+    (1, 4, 2, 400, 64, 128, 80),     # 5 chunks of 80
+    (1, 2, 1, 512, 16, 8, 16),       # 32 chunks of one scan block
 ])
 def test_ssd_kernel_matches_plain(cuda, dtype, B, H, G, L, P, N, chunk):
     gen = torch.Generator(device=cuda).manual_seed(L + P + N)
@@ -390,6 +428,103 @@ def test_ssd_kernel_matches_plain(cuda, dtype, B, H, G, L, P, N, chunk):
     torch.testing.assert_close(y.float(), want_y, **tol)
     torch.testing.assert_close(s, want_s, rtol=5 * tol["rtol"],
                                atol=5 * tol["atol"])
+    if dtype == torch.bfloat16:  # one rounding of an fp32 result
+        wide = ssd_ref.ssd_scan_ref(x.float(), dt, A, Bm.float(), Cm.float(),
+                                    chunk=chunk)[0]
+        torch.testing.assert_close(y.float(), wide, rtol=8e-3, atol=1e-4)
+        # exact products (C·B of bf16, each fp32 operand in three bf16
+        # pieces): the state within 1e-4 of the plain version, which widens
+        # to fp32, and >= 98% of y equal to its y rounded (one piece in place
+        # of three misses both)
+        torch.testing.assert_close(s, want_s, rtol=1e-4, atol=1e-4)
+        share = (y == wide.bfloat16()).float().mean().item()
+        assert share >= 0.98, share
+
+
+def test_ssd_phases_launch_at_least_132_blocks_at_the_long_shape(cuda):
+    """B 1, H 32, L 16384, chunk 256 (mamba2-370m's widths): each of the
+    four launches of one call, as the profiler's trace records its grid,
+    has at least 132 blocks (the SMs of an H100)."""
+    import json
+    import math
+    import tempfile
+    from pathlib import Path
+
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device=cuda).manual_seed(1)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device=cuda)
+
+    B, H, G, L, P, N, chunk = 1, 32, 1, 16384, 64, 128, 256
+    x, Bm, Cm = (rn(*sh).bfloat16() for sh in ((B, H, L, P), (B, G, L, N),
+                                                (B, G, L, N)))
+    dt = torch.nn.functional.softplus(rn(B, H, L) - 4.0)
+    A = -torch.ones(H, device=cuda)
+    ssd_ops.ssd(x, dt, A, Bm, Cm, chunk=chunk)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ssd_ops.ssd(x, dt, A, Bm, Cm, chunk=chunk)
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(trace))
+        events = json.loads(trace.read_text())["traceEvents"]
+    blocks = {}
+    for e in events:
+        for name in ssd_ops.PHASES:
+            if e.get("cat") == "kernel" and name in e.get("name", ""):
+                blocks[name] = math.prod(e["args"]["grid"])
+    assert set(blocks) == set(ssd_ops.PHASES), blocks
+    assert min(blocks.values()) >= 132, blocks
+
+
+@pytest.mark.parametrize("chunk", [16, 32, 64])
+def test_ssd_kernel_final_state_matches_the_sequential_recurrence(cuda, chunk):
+    """The state passed over 16, 8 and 4 chunks against the per-token
+    recurrence S = exp(dt A) S + dt x ⊗ B, at 1e-4 (the reference's)."""
+    gen = torch.Generator(device=cuda).manual_seed(chunk)
+    B, H, L, P, N = 1, 2, 256, 16, 8
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device=cuda)
+
+    x, Bm, Cm = rn(B, H, L, P), rn(B, 1, L, N), rn(B, 1, L, N)
+    dt = torch.nn.functional.softplus(rn(B, H, L) - 2.0)
+    A = -torch.exp(rn(H) * 0.3)
+    _, s = ssd_ops.ssd(x, dt, A, Bm, Cm, chunk=chunk)
+    want = torch.zeros_like(s)
+    for t in range(L):
+        a = torch.exp(dt[:, :, t] * A[None])
+        want = want * a[..., None, None] + torch.einsum(
+            "bh,bn,bhp->bhpn", dt[:, :, t], Bm[:, 0, t], x[:, :, t])
+    torch.testing.assert_close(s, want, rtol=1e-4, atol=1e-4)
+
+
+def test_ssd_kernel_takes_views_that_start_off_16_bytes(cuda):
+    """The kernels load 16 bytes at a time; the wrapper copies an operand
+    whose data starts elsewhere (a view at an offset) and gives the same
+    result."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    B, H, G, L, P, N, chunk = 1, 2, 1, 128, 32, 16, 64
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device=cuda)
+
+    x, Bm, Cm = (rn(*sh).bfloat16() for sh in ((B, H, L, P), (B, G, L, N),
+                                                (B, G, L, N)))
+    dt = torch.nn.functional.softplus(rn(B, H, L))
+    A = -torch.exp(rn(H) * 0.3)
+    shifted = []
+    for t in (x, Bm, Cm):
+        v = torch.empty(t.numel() + 2, dtype=t.dtype, device=cuda)[2:].view(t.shape)
+        v.copy_(t)
+        assert v.is_contiguous() and v.data_ptr() % 16 != 0
+        shifted.append(v)
+    y, s = ssd_ops.ssd(x, dt, A, Bm, Cm, chunk=chunk)
+    ys, ss = ssd_ops.ssd(shifted[0], dt, A, shifted[1], shifted[2], chunk=chunk)
+    assert torch.equal(ys, y) and torch.equal(ss, s)
 
 
 def test_ssd_wrapper_refuses_what_the_kernel_does_not_take(cuda):
