@@ -46,6 +46,25 @@ Run from the root of a checkout.  Phases, each printed as it ends:
    bf16 at other points, are measured beside it); and
    ``torch-splitk`` and ``dense-ref`` on fp32 copies of the params must give
    identical greedy tokens and logits within 1e-4;
+5b. continuous batching (``serving/scheduler.py`` over the paged KV pool of
+   ``serving/kv_pool.py``): the decode kernel with one cache length per
+   batch row (0, 1, 63, 64, 65, 544, 640, 513, and reversed) at the
+   serving shape against its plain version (bf16 2e-2, fp32 1e-5), each
+   row bit for bit the launch of its own length; then a ragged stream at
+   internlm2-1.8b's full width (16 requests, prompts 64-512, budgets 8-64,
+   arrivals over 24 steps, 8 slots of capacity 640) through the step
+   captured in one CUDA graph: 24 x steps_run decode-kernel launches in
+   ``torch.profiler``'s trace of the whole graphed stream (a replay does
+   not pass through the wrapper, which counts the warm-up's and the
+   capture's launches; the eager stream's it counts, 24 x steps_run),
+   one capture over three streams, the same stream eager bit for bit equal,
+   ms a step (between CUDA events) and tokens/s graphed and eager, the
+   device's busy share from ``torch.profiler`` over 4 steps, the gather's
+   device time, and slot-steps against padded static batching; then 4 of the requests with
+   fp32 params, each bit for bit itself served alone through the same
+   scheduler, and with the tokens of ``generate`` at B 1 (logits within
+   1e-4); mamba2-370m's shorter stream runs in phase 7 (graphed, no
+   hand-written kernel, each request bit for bit itself alone, = eager);
 6. the flash-attention prefill kernel (its path is its entry point
    ``kernels/flash_attention/ops.py::mha``, which no model calls, as in the
    reference): against its plain version at the reference's test shapes
@@ -73,10 +92,15 @@ Run from the root of a checkout.  Phases, each printed as it ends:
    32 tokens for 8 prompts of 512 (the path launches none of the
    hand-written kernels, as in the reference), is profiled, and in fp32 on
    the card picks the tokens the same engine picks on the CPU (batch 2,
-   prompt 256, 4 new tokens; logits within 1e-4);
+   prompt 256, 4 new tokens; logits within 1e-4); and its shorter
+   continuous-batching stream (8 requests, prompts 64-256, budgets 4-16, 4
+   slots), as in 5b;
 8. one JSON line with each kernel's time, launches on its path, bound,
    plain-version time and one library call's time (the BSR kernels' at
-   layer 2, and at each timed layer under ``by_layer``).
+   layer 2, and at each timed layer under ``by_layer``; the decode
+   kernel's launches on the graphed stream, counted in the profiler's
+   trace, under ``stream_launches`` and the stream's numbers under
+   ``stream``).
 
 Times are medians of single calls between two CUDA events; below ~0.1 ms
 that is mostly the wrapper's host time, so the decode kernel at the serving
@@ -163,6 +187,20 @@ SSD_LONG = (1, 32, 1, 16384, 64, 128, 256)
 # other orders, TF32 off, measured 5.031e-05 in two runs)
 SSM_CPU_BATCH, SSM_CPU_PROMPT, SSM_CPU_NEW = 2, 256, 4
 SSM_CPU_TOL = dict(rtol=1e-4, atol=1e-4)
+# continuous batching at internlm2-1.8b's full width through torch-splitk:
+# a ragged stream (prompts 64-512, budgets 8-64, arrivals over 24 steps)
+# through 8 slots of capacity padded_len(512 + 64) = 640, the decode kernel
+# first held to its plain version with one length per row (the rows'
+# lengths below, at the serving shape); CB_SOLO of the requests in fp32
+# against each one served alone (bit for bit) and against generate at B 1
+# (tokens identical, logits within 1e-4); the profiler over CB_PROFILE =
+# (first step, steps) of the stream; mamba2-370m's shorter stream: requests,
+# slots, prompt lengths, budgets
+CB_REQUESTS, CB_SLOTS, CB_MAX_LEN = 16, 8, PROMPT + 64
+CB_PROMPTS, CB_BUDGETS, CB_ARRIVALS = (64, 512), (8, 64), 24
+CB_SOLO, CB_PROFILE = 4, (16, 4)
+CB_LENS = (0, 1, 63, 64, 65, 544, 640, 513)
+CB_SSM = (8, 4, (64, 256), (4, 16))
 # builds of a kernel source with one piece of text replaced, each built
 # beside the others at the start: name -> (source, old, new).  The BSR
 # sweeps time a one-stage ring and a walk without the non-finite test; the
@@ -1097,6 +1135,16 @@ def serve_phase(dev, card):
     return launches["decode_attention"]
 
 
+def device_rows(prof):
+    """The profiler's device-side rows, largest first, as (name, device us
+    in all, count)."""
+    rows = [(e.key, getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0.0)), e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sorted(rows, key=lambda r: r[1], reverse=True)
+
+
 def profile_decode(engine, prompts, step_ms: float, steps: int = 4,
                    kernel: str = "decode_attention") -> None:
     """Device time by kernel over ``steps`` decode steps after a prefill,
@@ -1119,23 +1167,16 @@ def profile_decode(engine, prompts, step_ms: float, steps: int = 4,
             token = logits[:, -1:].argmax(dim=-1)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3 / steps
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    total = sum(dev_us(e) for e in rows) / 1e3 / steps
+    rows = device_rows(prof)
+    total = sum(us for _, us, _ in rows) / 1e3 / steps
     if total <= 0:
         log("[profile] no device time in the profiler's trace: not measured")
         return
-    rows.sort(key=dev_us, reverse=True)
-    n_kernels = sum(e.count for e in rows) / steps
+    n_kernels = sum(n for _, _, n in rows) / steps
     if kernel is None:
         share = "no hand-written kernel in the step"
     else:
-        dec = sum(dev_us(e) for e in rows if kernel in e.key) / 1e3 / steps
+        dec = sum(us for key, us, _ in rows if kernel in key) / 1e3 / steps
         share = (f"{kernel} kernel {dec:.4f} ms ({100 * dec / total:.2f}% of "
                  f"device time, {100 * dec / step_ms:.2f}% of the step)")
     log(f"[profile] {engine.cfg.name}, {steps} decode steps (B "
@@ -1144,9 +1185,9 @@ def profile_decode(engine, prompts, step_ms: float, steps: int = 4,
         f"{wall_ms:.2f} ms host wall under the profiler; device busy "
         f"{100 * total / step_ms:.1f}% of the unprofiled {step_ms:.2f} ms "
         f"step; {share}")
-    for e in rows[:10]:
-        log(f"  {dev_us(e) / 1e3 / steps:9.4f} ms/step  {e.count / steps:6.1f}"
-            f" x/step  {e.key[:80]}")
+    for key, us, n in rows[:10]:
+        log(f"  {us / 1e3 / steps:9.4f} ms/step  {n / steps:6.1f}"
+            f" x/step  {key[:80]}")
 
 
 class PlainSplitKOnCard:
@@ -1173,6 +1214,357 @@ class PlainSplitKOnCard:
         out, _ = ref.decode_attention_ref(q.reshape(B, H, D), k_cache,
                                           v_cache, cache_len)
         return out[:, None]
+
+
+# ---------------------------------------------------------------------------
+# 5b. continuous batching: per-row lengths, the paged pool, the graphed step
+# ---------------------------------------------------------------------------
+
+
+def cb_requests(n: int, prompts, budgets, arrivals: int, vocab: int, seed: int):
+    """``n`` requests with prompt lengths and budgets drawn uniformly from
+    the inclusive ranges ``prompts`` and ``budgets``, and arrival steps
+    from 0 to ``arrivals``."""
+    from repro_torch.serving.scheduler import Request
+
+    rng = np.random.default_rng(seed)
+    return [Request(rid=i,
+                    prompt=rng.integers(0, vocab, int(rng.integers(
+                        prompts[0], prompts[1] + 1))).astype(np.int32),
+                    max_new_tokens=int(rng.integers(budgets[0], budgets[1] + 1)),
+                    arrival=int(rng.integers(0, arrivals + 1)))
+            for i in range(n)]
+
+
+def drive(sched, reqs, profile=None):
+    """Serve ``reqs`` through the scheduler ``sched``.  Returns (results by
+    rid, host wall in s, each decode step's ms between two CUDA events
+    around it, and with ``profile`` = (first step, steps) the profiler's
+    device rows over those steps, else None)."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as Profile
+
+    events = []
+    prof = (Profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            if profile else None)
+    on = []
+
+    def step(launch):
+        k = len(events)
+        if prof is not None and k == profile[0]:
+            torch.cuda.synchronize()
+            prof.start()
+            on.append(True)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        launch()
+        e1.record()
+        events.append((e0, e1))
+        if on and k == profile[0] + profile[1] - 1:
+            torch.cuda.synchronize()
+            prof.stop()
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = sched.run(reqs, around_step=step)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    check(not profile or len(events) >= sum(profile),
+          f"the stream ran {len(events)} steps, fewer than the profiled ones")
+    return ({r.rid: r for r in res}, wall, [a.elapsed_time(b) for a, b in events],
+            device_rows(prof) if prof is not None else None)
+
+
+def traced_launches(sched, reqs, kernel: str):
+    """Serve ``reqs`` through ``sched`` under ``torch.profiler`` (device
+    activity only) and count the device kernels whose name holds
+    ``kernel`` in its trace: a replayed CUDA graph's kernels appear there
+    one by one.  Returns (results by rid, the count, seconds the trace took
+    to read)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        res = sched.run(reqs)
+        torch.cuda.synchronize()
+    # the trace's raw events: key_averages() builds a tree of ~200k events
+    # first, which took 25 s at the stream's size
+    t = time.perf_counter()
+    n = sum(1 for e in prof.profiler.kineto_results.events()
+            if e.device_type() == torch.autograd.DeviceType.CUDA
+            and kernel in e.name())
+    return {r.rid: r for r in res}, n, time.perf_counter() - t
+
+
+def same_results(a: dict, b: dict, what: str) -> None:
+    check(sorted(a) == sorted(b), f"{what}: rids {sorted(a)} vs {sorted(b)}")
+    for rid in a:
+        check(np.array_equal(a[rid].tokens, b[rid].tokens)
+              and np.array_equal(a[rid].final_logits, b[rid].final_logits),
+              f"{what}: request {rid} differs (tokens {a[rid].tokens[:8]} vs "
+              f"{b[rid].tokens[:8]}, max |logits diff| "
+              f"{np.abs(a[rid].final_logits - b[rid].final_logits).max()})")
+
+
+def static_slot_steps(reqs, slots: int) -> int:
+    """Slot-steps of padded static batching of the same width: the requests
+    in arrival order, ``slots`` at a time, each batch decoding until its
+    longest budget."""
+    order = sorted(reqs, key=lambda r: (r.arrival, r.rid))
+    return sum(max(r.max_new_tokens for r in order[i:i + slots]) * slots
+               for i in range(0, len(order), slots))
+
+
+def per_row_kernel(dev, card) -> float:
+    """The decode kernel with one length per row (``CB_LENS``, and
+    reversed) at the serving shape against its plain version, and each row
+    bit for bit the launch of its own length alone; both timed from a CUDA
+    graph beside one shared length.  Returns the max error."""
+    from repro_torch.kernels.decode_attention import ops, ref
+
+    B, H, KV, S, D = DECODE_SHAPE
+    check(len(CB_LENS) == B == CB_SLOTS, "CB_LENS must give every row a length")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    lens = torch.tensor(CB_LENS, dtype=torch.int32, device=dev)
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = [torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+                   for shape in ((B, H, D), (B, KV, S, D), (B, KV, S, D))]
+        tol = DECODE_TOL[dtype]
+        for rows in (lens, lens.flip(0).contiguous()):
+            out, lse = ops.decode_mha(q, k, v, rows)
+            want, want_lse = ref.decode_attention_ref(q, k, v, rows)
+            torch.testing.assert_close(out.float(), want.float(), **tol)
+            torch.testing.assert_close(lse, want_lse, **tol)
+            err = (out.float() - want.float()).abs().max().item()
+            worst = max(worst, err)
+            for b in range(B):
+                o1, l1 = ops.decode_mha(q, k, v, rows[b:b + 1])
+                check(torch.equal(out[b], o1[b]) and torch.equal(lse[b], l1[b]),
+                      f"row {b} (cache_len {int(rows[b])}) differs from the "
+                      f"launch of its length alone")
+            log(f"  decode per-row lengths {rows.tolist()} {dtype}: max_abs_err "
+                f"out {err:.3e}, lse {(lse - want_lse).abs().max().item():.3e} "
+                f"(tolerance rtol=atol={tol['atol']}); every row bit for bit "
+                f"its own length's launch")
+        shared = torch.tensor([PROMPT + NEW], dtype=torch.int32, device=dev)
+        t_rows = graph_ms(lambda: ops.decode_mha(q, k, v, lens))
+        t_one = graph_ms(lambda: ops.decode_mha(q, k, v, shared))
+        log(f"[time] decode_attention B{B} H{H} KV{KV} S{S} D{D} {dtype}, a "
+            f"launch from a CUDA graph: per-row lengths {CB_LENS} {t_rows:.4f} "
+            f"ms, one length {PROMPT + NEW} {t_one:.4f} ms, on {card}")
+    return worst
+
+
+def cb_phase(dev, peaks, card):
+    """Continuous batching at internlm2-1.8b's full width (24 layers, bf16
+    params from seed 0, ``torch-splitk``): the per-row decode kernel, then
+    the ragged stream graphed and eager (bit for bit the same), its
+    launches, capture count, step times, tokens/s, busy share, the
+    gather's device time and slot-steps, then fp32 requests against solo
+    runs and ``generate``.  Returns (the decode kernel's launches in the
+    profiler's trace of the graphed stream, the per-row check's max error,
+    the stream's numbers)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.scheduler import WARMUP_STEPS, RequestScheduler
+
+    err = per_row_kernel(dev, card)
+    cfg = get_config(ARCH)
+    engine = ServingEngine(cfg, seed=SEED)
+    layout = engine.cache_layout(CB_MAX_LEN)
+    cap = layout.padded_len(CB_MAX_LEN)
+    check(cap == DECODE_SHAPE[3], f"slot capacity {cap}, want {DECODE_SHAPE[3]}")
+    reqs = cb_requests(CB_REQUESTS, CB_PROMPTS, CB_BUDGETS, CB_ARRIVALS,
+                       cfg.vocab_size, SEED)
+
+    def scheduler(params, graph):
+        return RequestScheduler(engine.model, params, CB_SLOTS, cap,
+                                layout=layout, device=dev, graph=graph)
+
+    reset_counts()
+    t = time.perf_counter()
+    sched = scheduler(engine.params, True)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t
+    pool = sched.pool
+    pool_bytes = sum(b.numel() * b.element_size() for b in
+                     (pool.buffers["k"], pool.buffers["v"]))
+    log(f"[stream] {cfg.name} at full width, {engine.attn_backend.name}: "
+        f"{CB_REQUESTS} requests, prompts {[len(r.prompt) for r in reqs]}, "
+        f"budgets {[r.max_new_tokens for r in reqs]}, arrivals "
+        f"{[r.arrival for r in reqs]}; {CB_SLOTS} slots of capacity {cap}, "
+        f"pages of {layout.block_k} tokens, {pool.num_blocks} pages "
+        f"({pool_bytes / 1e9:.2f} GB of K and V); scheduler built, step "
+        f"warmed up and captured in {t_build:.2f} s")
+    res_g, wall_g, ms_g, _ = drive(sched, reqs)
+    # the wrapper counts the launches it makes: the warm-up's and the ones
+    # the capture records; the replays run the graph, not the wrapper
+    built = read_counts()
+    want = only(built, decode_attention=cfg.n_layers * (WARMUP_STEPS + 1))
+    check(built == want, f"graphed stream's wrapper launches {built}, want {want}")
+    steps = sched.steps_run
+    res_t, traced, t_read = traced_launches(sched, reqs,
+                                            "decode_attention_kernel")
+    check(traced == cfg.n_layers * steps,
+          f"{traced} decode kernels in the trace of the graphed stream, want "
+          f"{cfg.n_layers} x {steps}")
+    same_results(res_g, res_t, "graph vs graph under the profiler")
+    check(sched.captures == 1, f"{sched.captures} captures over the stream")
+    check(pool.allocator.live_blocks == 0, "pages still live after the stream")
+    V = cfg.padded_vocab()
+    for r in reqs:
+        got = res_g[r.rid]
+        check(got.tokens.shape == (r.max_new_tokens,)
+              and bool(((got.tokens >= 0) & (got.tokens < V)).all())
+              and got.final_logits.shape == (V,)
+              and bool(np.isfinite(got.final_logits).all()),
+              f"request {r.rid}: tokens {got.tokens.shape} or logits wrong")
+    eager = scheduler(engine.params, False)
+    reset_counts()
+    res_e, wall_e, ms_e, _ = drive(eager, reqs)
+    launches = read_counts()
+    want = only(launches, decode_attention=cfg.n_layers * steps)
+    check(launches == want, f"eager stream launches {launches}, want {want}")
+    same_results(res_g, res_e, "graph vs eager")
+    check(eager.steps_run == steps and eager.captures == 0, "eager steps differ")
+    _, _, _, rows_g = drive(sched, reqs, CB_PROFILE)
+    _, _, _, rows_e = drive(eager, reqs, CB_PROFILE)
+    check(sched.captures == 1, f"{sched.captures} captures over three streams")
+    tokens = sum(r.max_new_tokens for r in reqs)
+    check(sched.tokens_emitted == 3 * tokens, "tokens emitted != the budgets")
+    static = static_slot_steps(reqs, CB_SLOTS)
+    med_g, med_e = statistics.median(ms_g), statistics.median(ms_e)
+
+    def busy(rows, med):
+        dev_ms = sum(us for _, us, _ in rows) / 1e3 / CB_PROFILE[1]
+        if dev_ms <= 0:
+            return None, "not measured (no device time in the trace)"
+        n = sum(c for _, _, c in rows) / CB_PROFILE[1]
+        return dev_ms, (f"{dev_ms:.3f} ms of device time over {n:.0f} kernels "
+                        f"a step, busy {100 * dev_ms / med:.1f}%")
+
+    dev_g, busy_g = busy(rows_g, med_g)
+    dev_e, busy_e = busy(rows_e, med_e)
+    gather = lambda: pool.gather(pool.buffers, sched._tables_dev)  # noqa: E731
+    g_b2b, g_graph, g_dev = burst_ms(gather, n=20, reps=3)
+    g_bytes = 2 * 2 * pool.buffers["k"][0, 0].numel() * pool.buffers["k"].element_size() \
+        * CB_SLOTS * cap
+    log(f"[stream] {steps} decode steps, {tokens} tokens; decode kernels in "
+        f"the profiler's trace of the graphed stream {traced} = "
+        f"{cfg.n_layers} x {steps} (trace read in {t_read:.2f} s); wrapper "
+        f"launches: {built['decode_attention']} building the graph "
+        f"({WARMUP_STEPS} warm-up steps and the capture), "
+        f"{launches['decode_attention']} on the eager stream; captures "
+        f"{sched.captures} (over three streams); graph and eager tokens and "
+        f"final logits bit for bit equal")
+    log(f"[stream] ms a step (median between CUDA events): graph {med_g:.3f}, "
+        f"eager {med_e:.3f} ({med_e / med_g:.2f}x); stream wall (prefills "
+        f"included): graph {wall_g:.3f} s, {tokens / wall_g:.1f} tokens/s; eager "
+        f"{wall_e:.3f} s, {tokens / wall_e:.1f} tokens/s; decode steps alone: "
+        f"graph {tokens / sum(ms_g) * 1e3:.1f} tokens/s, eager "
+        f"{tokens / sum(ms_e) * 1e3:.1f} tokens/s, on {card}")
+    log(f"[stream] profiler over steps {CB_PROFILE[0]}-{sum(CB_PROFILE) - 1}: "
+        f"graph {busy_g}; eager {busy_e}")
+    for key, us, n in (rows_g or rows_e)[:8]:
+        log(f"  {us / 1e3 / CB_PROFILE[1]:9.4f} ms/step  "
+            f"{n / CB_PROFILE[1]:6.1f} x/step  {key[:80]}")
+    log(f"[stream] gather of K and V ([{cfg.n_layers}, {CB_SLOTS}, "
+        f"{cfg.eff_kv_heads}, {cap}, {cfg.d_head}] each, {g_bytes / 1e9:.3f} GB "
+        f"read and written): {g_b2b:.4f} ms back to back, {g_graph:.4f} from a "
+        f"CUDA graph, {fmt_ms(g_dev)} ms of device time; bound "
+        f"{g_bytes / peaks[0] * 1e3:.4f} ms (bytes), on {card}")
+    log(f"[stream] slot-steps: continuous {steps * CB_SLOTS} ({steps} steps x "
+        f"{CB_SLOTS}), padded static batching {static}; {tokens} tokens")
+    check(steps * CB_SLOTS < static, "continuous batching spent no fewer "
+                                     "slot-steps than padded static batches")
+    summary = dict(steps=steps, tokens=tokens, step_ms_graph=med_g,
+                   step_ms_eager=med_e, tokens_per_s_graph=tokens / wall_g,
+                   tokens_per_s_eager=tokens / wall_e, busy_device_ms_graph=dev_g,
+                   busy_device_ms_eager=dev_e, gather_graph_ms=g_graph,
+                   gather_device_ms=g_dev, slot_steps=steps * CB_SLOTS,
+                   static_slot_steps=static)
+    del sched, eager, pool, gather
+
+    # fp32 copies of the params: CB_SOLO requests against each alone
+    # through the same scheduler (bit for bit) and generate at B 1
+    p32 = transformer.Transformer(cfg, dtype=torch.float32, device=dev)
+    for dst, src in zip(p32.parameters(), engine.params.parameters()):
+        dst.copy_(src)
+    del engine
+    torch.cuda.empty_cache()
+    e32 = ServingEngine(cfg, params=p32)
+    s32 = RequestScheduler(e32.model, p32, CB_SLOTS, cap, layout=layout,
+                           device=dev)
+    sub = reqs[:CB_SOLO]
+    stream = {r.rid: r for r in s32.run(sub)}
+    worst = 0.0
+    for r in sub:
+        solo = {x.rid: x for x in s32.run([dataclasses.replace(r, arrival=0)])}
+        same_results({r.rid: stream[r.rid]}, solo, "fp32 stream vs solo")
+        g = e32.generate(np.asarray(r.prompt)[None], r.max_new_tokens,
+                         max_len=cap)
+        check(np.array_equal(g.tokens[0], stream[r.rid].tokens),
+              f"request {r.rid}: stream tokens differ from generate's")
+        np.testing.assert_allclose(stream[r.rid].final_logits,
+                                   g.prefill_logits[0], rtol=1e-4, atol=1e-4)
+        worst = max(worst, float(np.abs(stream[r.rid].final_logits
+                                        - g.prefill_logits[0]).max()))
+    check(s32.captures == 1, f"{s32.captures} captures over {1 + CB_SOLO} streams")
+    log(f"[stream] fp32 params, requests {[r.rid for r in sub]} (prompts "
+        f"{[len(r.prompt) for r in sub]}, budgets "
+        f"{[r.max_new_tokens for r in sub]}): each bit for bit the same "
+        f"request alone through the same scheduler; tokens identical to "
+        f"generate at B 1, max |logits diff| {worst:.3e} (tolerance 1e-4); "
+        f"captures {s32.captures} over {1 + CB_SOLO} streams")
+    del s32, e32, p32
+    torch.cuda.empty_cache()
+    return traced, err, summary
+
+
+def cb_ssm(engine, dev, card) -> None:
+    """mamba2-370m's shorter stream (``CB_SSM``), graphed: it launches no
+    hand-written kernel, and each request's tokens and logits equal it
+    served alone through the same scheduler, bit for bit; then eager."""
+    import dataclasses
+
+    from repro_torch.serving.scheduler import RequestScheduler
+
+    n, slots, prompts, budgets = CB_SSM
+    cfg = engine.cfg
+    reqs = cb_requests(n, prompts, budgets, 8, cfg.vocab_size, SEED)
+    max_len = prompts[1] + budgets[1]
+    layout = engine.cache_layout(max_len)
+    cap = layout.padded_len(max_len)
+
+    def scheduler(graph):
+        return RequestScheduler(engine.model, engine.params, slots, cap,
+                                layout=layout, device=dev, graph=graph)
+
+    sched = scheduler(True)
+    reset_counts()
+    res, wall, ms, _ = drive(sched, reqs)
+    launches = read_counts()
+    check(launches == only(launches), f"mamba2 stream launches {launches}")
+    steps, tokens = sched.steps_run, sched.tokens_emitted
+    for r in reqs:
+        solo = {x.rid: x for x in sched.run([dataclasses.replace(r, arrival=0)])}
+        same_results({r.rid: res[r.rid]}, solo, "mamba2 stream vs solo")
+    check(sched.captures == 1, f"{sched.captures} captures")
+    res_e, wall_e, ms_e, _ = drive(scheduler(False), reqs)
+    same_results(res, res_e, "mamba2 graph vs eager")
+    log(f"[stream] {cfg.name}: {n} requests (prompts {[len(r.prompt) for r in reqs]}, "
+        f"budgets {[r.max_new_tokens for r in reqs]}) through {slots} slots: "
+        f"{steps} steps, {tokens} tokens, no hand-written kernel launched; "
+        f"each request bit for bit itself served alone; graph = eager bit for "
+        f"bit; ms a step graph {statistics.median(ms):.3f}, eager "
+        f"{statistics.median(ms_e):.3f}; stream wall graph {wall:.3f} s "
+        f"({tokens / wall:.1f} tokens/s), eager {wall_e:.3f} s "
+        f"({tokens / wall_e:.1f} tokens/s); captures {sched.captures}, on {card}")
 
 
 # ---------------------------------------------------------------------------
@@ -1648,6 +2040,7 @@ def mamba2_phase(dev, peaks, card):
         f"{step * 1e3:.3f} ms/step, {SERVE_BATCH / step:.1f} tokens/s; end to "
         f"end {SERVE_BATCH * NEW / t_gen:.1f} tokens/s, on {card}")
     profile_decode(engine, prompts, step * 1e3, kernel=None)
+    cb_ssm(engine, dev, card)
 
     # fp32 copies of the same params: the engine on the card and on the CPU
     p32 = mamba2.Mamba2(cfg, dtype=torch.float32, device=dev)
@@ -1752,6 +2145,10 @@ def main() -> int:
     timing["decode_attention"], errs["decode_attention"] = decode_phase(
         dev, peaks, card)
     launches["decode_attention"] = serve_phase(dev, card)
+    stream_launches, row_err, stream = cb_phase(dev, peaks, card)
+    timing["decode_attention"].update(stream_launches=stream_launches,
+                                      stream=stream)
+    errs["decode_attention"] = max(errs["decode_attention"], row_err)
     (timing["flash_attention"], launches["flash_attention"],
      errs["flash_attention"]) = flash_phase(dev, peaks, card)
     timing["ssd_scan"], launches["ssd_scan"], errs["ssd_scan"] = mamba2_phase(

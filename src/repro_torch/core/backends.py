@@ -330,6 +330,13 @@ class KVCacheLayout:
         bk = max(1, int(self.block_k))
         return -(-max(int(max_len), 1) // bk) * bk
 
+    def blocks_for(self, max_len: int) -> int:
+        """Number of ``block_k``-sized pages a sequence of up to ``max_len``
+        tokens occupies: the allocation unit of the paged KV pool
+        (``serving/kv_pool.py``); a request holds ``blocks_for(prompt +
+        max_new)`` pages for its lifetime and frees them at retirement."""
+        return self.padded_len(max_len) // max(1, int(self.block_k))
+
     def check_capacity(self, seq_cap: int) -> None:
         if seq_cap % max(1, int(self.block_k)):
             raise ValueError(

@@ -9,6 +9,10 @@
 // h = kv*G + g that share the head attend to the cache's valid prefix:
 //
 //   s[t]  = (q[b,h] . k[b,kv,t]) / sqrt(D)  for t < cache_len, else -1e30
+//
+// cache_len is one length for the whole batch or one per batch row b (the
+// continuous-batching scheduler's slots, what vmap over the TPU kernel
+// gives each slot there); either way it stays in device memory.
 //   out   = sum_t exp(s[t] - m) v[b,kv,t] / max(l, 1e-30)    (in q's dtype)
 //   lse   = m + log(max(l, 1e-30))                            (fp32)
 //
@@ -146,14 +150,16 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
 }
 
 // part: per (bh, split) G*D acc, then G m, then G l (fp32); tickets: one
-// int per bh, 0 between launches.
+// int per bh, 0 between launches.  len: one int (len_rows 1) or one per
+// batch row (len_rows B), row b = bh / kv_heads.
 template <typename T, int G, int D>
 __global__ void __launch_bounds__(kThreads)
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const int* __restrict__ len,
                         T* __restrict__ out, float* __restrict__ lse,
                         float* __restrict__ part, int* __restrict__ tickets,
-                        int s_cap, int split_keys, int n_split, float scale) {
+                        int s_cap, int split_keys, int n_split, int kv_heads,
+                        int len_rows, float scale) {
   constexpr int kVec = Slice<T>::kVec;
   constexpr int R = D / kVec;        // lanes that share one key row
   constexpr int kRowsPerWarp = 32 / R;
@@ -177,7 +183,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int c = lane % R;     // this lane's 16-byte slice of a row
   const int grp = warp * kRowsPerWarp + lane / R;
 
-  const int cache_len = *len;
+  const int cache_len = len[len_rows > 1 ? bh / kv_heads : 0];
   const int n = cache_len >= 1 ? min(cache_len, s_cap) : s_cap;
   const int t0 = split * split_keys;
   const int keys = max(0, min(t0 + split_keys, n) - t0);
@@ -443,7 +449,8 @@ auto ready(cudaError_t& err) {
 extern "C" {
 
 // q [B, KV*G, D], k and v [B, KV, S, D], all contiguous and 16-byte
-// aligned, of one dtype (0: fp32, 1: bf16); len a device int32; out
+// aligned, of one dtype (0: fp32, 1: bf16); len len_rows device int32s
+// (1: one length for the batch, batch: one per row); out
 // [B, KV*G, D] in that dtype; lse fp32 [B, KV*G].  The grid is (B*KV,
 // n_split), block j sweeping keys [j*split_keys, (j+1)*split_keys) (a
 // multiple of 64); with n_split > 1, part is fp32 scratch of
@@ -455,8 +462,10 @@ int decode_attention_launch(const void* q, const void* k, const void* v,
                             const void* len, void* out, void* lse, void* part,
                             void* tickets, int batch, int kv_heads, int groups,
                             int s_cap, int d_head, int split_keys, int n_split,
-                            int dtype, float scale, void* stream) {
+                            int dtype, int len_rows, float scale,
+                            void* stream) {
   if (batch < 1 || kv_heads < 1 || s_cap < 1 || split_keys < 1 ||
+      (len_rows != 1 && len_rows != batch) ||
       split_keys % 64 || n_split < 1 || n_split > 65535 ||
       (long long)split_keys * n_split < s_cap ||
       (n_split > 1 && (part == nullptr || tickets == nullptr)))
@@ -472,7 +481,7 @@ int decode_attention_launch(const void* q, const void* k, const void* v,
              (cudaStream_t)stream>>>(
         (const T*)q, (const T*)k, (const T*)v, (const int*)len, (T*)out,
         (float*)lse, (float*)part, (int*)tickets, s_cap, split_keys, n_split,
-        scale);
+        kv_heads, len_rows, scale);
     return (int)cudaGetLastError();
   });
 }

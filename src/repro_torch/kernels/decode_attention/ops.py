@@ -4,9 +4,12 @@
 ``decode_mha(q [B,H,D], k_cache, v_cache [B,KV,S,D], cache_len)``
 → ``(out [B,H,D] in q.dtype, lse [B,H] fp32)``: one token's attention over
 the cache's first ``cache_len`` positions, the G = H / KV query heads of a
-KV head sharing it.  ``cache_len`` is an int or an int32 tensor of one
-element on the tensors' device; the kernel reads it there, so a decode loop
-passes the same tensor arithmetic every step without a host sync.
+KV head sharing it.  ``cache_len`` is an int, an int32 tensor of one
+element (one length for the batch) or an int32 tensor of B elements (row
+``b`` attends to its own ``cache_len[b]`` keys, as the continuous-batching
+scheduler's slots do), on the tensors' device; the kernel reads it there,
+so a decode loop passes the same tensor arithmetic every step without a
+host sync.
 
 The kernel splits each (b, kv)'s cache across ``n_split`` blocks
 (``split_plan``, from the capacity S, B·KV and the blocks the card holds
@@ -14,7 +17,10 @@ at once, never from ``cache_len``) and merges their partials by lse inside
 the same launch: the last block of a (b, kv) to finish merges, found with
 a ticket that it resets.  The partials and the tickets are scratch that the wrapper keeps
 per device and stream, the tickets zeroed once: launches on one stream
-run in order, and every launch leaves its tickets at zero.
+run in order, and every launch leaves its tickets at zero.  A CUDA graph
+captured on a stream holds that stream's scratch: warm the launch up on
+the stream before the capture (the scratch cannot grow inside one), and
+have the graph's owner take the scratch over with ``release_scratch``.
 
 A tensor on the CPU goes to the plain version in ``ref.py``; a CUDA tensor
 goes to the kernel, or the wrapper raises.  There is no fallback from one
@@ -38,7 +44,7 @@ from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
 __all__ = ["decode_mha", "launch", "plan_for", "LAUNCHES", "GROUPS",
            "HEAD_DIMS", "SPLIT_TILE", "MAX_SPLIT_TILES", "load_library",
-           "library_path", "split_plan"]
+           "library_path", "release_scratch", "split_plan"]
 
 LAUNCHES = {"decode_attention": 0}
 GROUPS = (1, 2, 4, 8)       # query heads per KV head the kernel is built for
@@ -61,7 +67,7 @@ def library_path() -> Path:
 def _configure(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.decode_attention_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i,
-                                            i, i, i, i, i, ctypes.c_float, p]
+                                            i, i, i, i, i, i, ctypes.c_float, p]
     lib.decode_attention_launch.restype = i
     lib.decode_attention_blocks_per_sm.argtypes = [i, i, i, p]
     lib.decode_attention_blocks_per_sm.restype = i
@@ -136,12 +142,30 @@ def _scratch_for(dev: torch.device, stream: int, n_tickets: int,
     device and stream, grown as needed."""
     key = (dev.index, stream)
     tickets, part = _scratch.get(key, (None, None))
+    grow = ((tickets is None or tickets.numel() < n_tickets)
+            or (part is None or part.numel() < n_part))
+    if grow and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            "decode_mha's scratch must grow inside a CUDA graph capture: "
+            "launch it once at these shapes on the capturing stream first")
     if tickets is None or tickets.numel() < n_tickets:
         tickets = torch.zeros(n_tickets, dtype=torch.int32, device=dev)
     if part is None or part.numel() < n_part:
         part = torch.empty(n_part, dtype=torch.float32, device=dev)
     _scratch[key] = (tickets, part)
     return tickets, part
+
+
+def release_scratch(dev: torch.device, stream: int):
+    """Forget the scratch kept for ``stream`` (a ``cuda_stream`` handle) on
+    ``dev`` and return it, ``(tickets, partials)`` or ``None``.  A CUDA
+    graph captured on that stream launches with these tensors' addresses,
+    so its owner keeps them as long as the graph; torch reuses stream
+    handles, and a later stream with this handle gets scratch of its own
+    instead of growing, freeing or sharing the graph's."""
+    dev = torch.device(dev)
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    return _scratch.pop((index, stream), None)
 
 
 def _check(q, k_cache, v_cache):
@@ -169,13 +193,16 @@ def _check(q, k_cache, v_cache):
                          f"{tuple(q.shape)}: need [B, KV, S>=1, D] with KV | H")
 
 
-def _len_tensor(cache_len, device: torch.device) -> torch.Tensor:
+def _len_tensor(cache_len, device: torch.device, batch: int) -> torch.Tensor:
     if isinstance(cache_len, torch.Tensor):
-        if cache_len.dtype != torch.int32 or cache_len.numel() != 1:
-            raise TypeError(f"cache_len must be an int32 tensor of one "
-                            f"element, got {cache_len.dtype} {tuple(cache_len.shape)}")
+        if cache_len.dtype != torch.int32 or cache_len.numel() not in (1, batch):
+            raise TypeError(f"cache_len must be an int32 tensor of 1 or B = "
+                            f"{batch} elements, got {cache_len.dtype} "
+                            f"{tuple(cache_len.shape)}")
         if cache_len.device != device:
             raise ValueError(f"cache_len is on {cache_len.device}, q on {device}")
+        if not cache_len.is_contiguous():
+            raise ValueError("cache_len must be contiguous")
         return cache_len
     return torch.tensor([int(cache_len)], dtype=torch.int32, device=device)
 
@@ -186,7 +213,7 @@ def decode_mha(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     docstring)."""
     _check(q, k_cache, v_cache)
     dev = q.device
-    lens = _len_tensor(cache_len, dev)
+    lens = _len_tensor(cache_len, dev, q.shape[0])
     if dev.type == "cpu":
         return decode_attention_ref(q, k_cache, v_cache, lens)
     if dev.type != "cuda":
@@ -208,7 +235,8 @@ def launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     ``(n_split, split_keys)`` from ``split_plan``; operands as
     ``decode_mha`` has checked them, ``lens`` the int32 ``cache_len`` on
     their device.  ``decode_mha`` passes its own plan; a caller that
-    measures plans passes others."""
+    measures plans passes others.  ``lens`` of B elements gives each row
+    its own length; of one, the batch one length."""
     B, H, D = q.shape
     KV, S = k_cache.shape[1], k_cache.shape[2]
     G = H // KV
@@ -229,7 +257,7 @@ def launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
             None if part is None else part.data_ptr(),
             None if tickets is None else tickets.data_ptr(),
             B, KV, G, S, D, split_keys, n_split, _DTYPES[q.dtype],
-            1.0 / math.sqrt(D), stream)
+            lens.numel(), 1.0 / math.sqrt(D), stream)
     _raise_on(err, "decode_attention_launch")
     LAUNCHES["decode_attention"] += 1
     return out, lse

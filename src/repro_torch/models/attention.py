@@ -37,14 +37,18 @@ __all__ = ["full_attention", "chunked_causal_attention", "decode_attention",
            "decode_attention_dense", "combine_split_kv_stacked"]
 
 
-def _len(cache_len, S: int):
-    """``cache_len`` as something ``arange(S) < cache_len`` broadcasts
-    against: an int, or a tensor of one element."""
-    if cache_len is None:
-        return S
-    if isinstance(cache_len, torch.Tensor):
-        return cache_len.reshape(())
-    return int(cache_len)
+def _valid(cache_len, S: int, ndim: int, device) -> torch.Tensor:
+    """The mask ``position < cache_len`` over ``S`` key positions, shaped to
+    broadcast against scores of ``ndim`` dims (batch first, key position
+    last).  ``cache_len``: an int, a tensor of one element (one length for
+    the batch: an ``[S]`` mask), or an int tensor of one length per batch
+    row (a ``[B, 1, ..., S]`` mask)."""
+    pos = torch.arange(S, device=device)
+    if not isinstance(cache_len, torch.Tensor):
+        return pos < int(cache_len)
+    if cache_len.numel() == 1:
+        return pos < cache_len.reshape(())
+    return pos < cache_len.reshape((-1,) + (1,) * (ndim - 1))
 
 
 def _sqrt_d(D: int) -> float:
@@ -151,7 +155,7 @@ def decode_attention(
     q: torch.Tensor,            # [B, 1, H, D] — one new token
     k_cache: torch.Tensor,      # [B, KV, S, D]
     v_cache: torch.Tensor,      # [B, KV, S, D]
-    cache_len=None,             # valid prefix length (≤ S), int or tensor
+    cache_len=None,             # valid prefix (≤ S): int, or tensor of 1 or B
     kv_chunk: int = 2048,
     return_lse: bool = False,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
@@ -173,7 +177,8 @@ def decode_attention(
     dev = q.device
     qg = q.reshape(B, KV, G, D).to(ACC)
     scale = _scale(D)
-    length = _len(cache_len, S)
+    valid_all = _valid(S if cache_len is None else cache_len, n_k * kv_chunk,
+                       4, dev)
     m = torch.full((B, KV, G), NEG_INF, dtype=ACC, device=dev)
     l = torch.zeros((B, KV, G), dtype=ACC, device=dev)
     acc = torch.zeros((B, KV, G, D), dtype=ACC, device=dev)
@@ -181,8 +186,7 @@ def decode_attention(
         sl = slice(kj * kv_chunk, (kj + 1) * kv_chunk)
         k_blk, v_blk = k_cache[:, :, sl], v_cache[:, :, sl]
         s = torch.einsum("bkgd,bksd->bkgs", qg, k_blk.to(ACC)) * scale
-        valid = kj * kv_chunk + torch.arange(kv_chunk, device=dev) < length
-        s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+        s = torch.where(valid_all[..., sl], s, torch.full_like(s, NEG_INF))
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
@@ -200,7 +204,7 @@ def decode_attention_dense(
     q: torch.Tensor,            # [B, 1, H, D]
     k_cache: torch.Tensor,      # [B, KV, S, D]
     v_cache: torch.Tensor,      # [B, KV, S, D]
-    cache_len,                  # valid prefix length, int or tensor
+    cache_len,                  # valid prefix: int, or tensor of 1 or B
     return_lse: bool = False,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Single-token attention over the full cache, no chunking.
@@ -215,8 +219,8 @@ def decode_attention_dense(
     qg = q.reshape(B, 1, KV, G, D).to(ACC)
     scale = _scale(D)
     s = torch.einsum("bqkgd,bksd->bkgqs", qg, k_cache.to(ACC)) * scale
-    valid = torch.arange(S, device=dev) < _len(cache_len, S)
-    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    s = torch.where(_valid(S if cache_len is None else cache_len, S, 5, dev), s,
+                    torch.full_like(s, NEG_INF))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)

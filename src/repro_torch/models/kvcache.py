@@ -5,8 +5,12 @@ tensor}`` — the decode kernel's layout, with the capacity ``S_cap`` padded
 to the attention backend's ``block_k`` multiple at prefill
 (:class:`repro_torch.core.backends.KVCacheLayout`), so the per-step decode
 reads the buffers as they are.  ``length`` is the valid prefix, the same
-for the whole batch, and lives on the cache's device so a decode loop
-never reads it back to the host.
+for the whole batch (an int32 scalar tensor) or one per batch row (an int32
+``[B]`` tensor, as the continuous-batching scheduler keeps it), and lives
+on the cache's device so a decode loop never reads it back to the host.
+The mamba2 cache (``models/mamba2.py``) holds ``{"conv": {"x", "B", "C"},
+"ssm", "length"}``; every leaf but ``length`` has the layer axis first and
+the batch axis second.
 
 Unlike the reference's functional ``dynamic_update_slice``, the updates
 here write into the cache in place: a full-size cache is hundreds of MB,
@@ -15,7 +19,7 @@ and copying it every step would cost more than the step.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict
 
 import torch
 
@@ -24,7 +28,37 @@ from repro_torch.core.backends import KVCacheLayout
 Cache = Dict[str, torch.Tensor]
 
 __all__ = ["KVCacheLayout", "init_attn_cache", "pad_kv_to_layout",
-           "update_layer_kv"]
+           "update_layer_kv", "seq_axis_tree"]
+
+# Cache-dict keys whose subtrees hold *growing* self-attention KV (sequence
+# axis at -2, one new position written per decode step) vs. state that is
+# slot-resident in the continuous-batching scheduler (the SSM and conv
+# states, the length): the keys of the two families the port has.
+_GROWING_KV_KEYS = frozenset({"k", "v"})
+_STATIC_KEYS = frozenset({"conv", "ssm", "length"})
+
+
+def seq_axis_tree(cache: Any, _path=()) -> Any:
+    """A tree matching ``cache`` (nested dicts of tensors) of
+    ``Optional[int]``: the sequence axis of every *growing* KV leaf (always
+    ``-2`` in the kernel's layout), or ``None`` for slot-resident state.
+
+    This is the single source of truth for which cache leaves the paged
+    :class:`repro_torch.serving.kv_pool.KVBlockPool` owns and which the
+    scheduler keeps per slot.  The classification is by dict key along the
+    path: ``k``/``v`` subtrees grow, unless a key on the path marks
+    slot-resident state (``conv``, ``ssm``, ``length``).  The port's mamba2 conv
+    cache is a dict of ``x``, ``B`` and ``C`` tails; the ``conv`` key on
+    their path keeps them in the slot.  Families re-export this as
+    ``cache_seq_axes``.
+    """
+    if isinstance(cache, dict):
+        return {k: seq_axis_tree(v, _path + (k,)) for k, v in cache.items()}
+    if any(k in _STATIC_KEYS for k in _path):
+        return None
+    if any(k in _GROWING_KV_KEYS for k in _path) and cache.dim() >= 4:
+        return -2
+    return None
 
 
 def init_attn_cache(

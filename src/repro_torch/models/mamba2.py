@@ -27,13 +27,15 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models.kvcache import seq_axis_tree
 
 ACC = torch.float32
 Cache = Dict[str, Any]
 
 __all__ = ["Mamba2Block", "Mamba2", "init", "params_from_arrays",
            "chunk_cumsum", "causal_conv", "ssd_chunked", "ssd_decode", "ssm_inputs",
-           "block_apply", "decode_block", "forward", "prefill", "decode_step"]
+           "block_apply", "decode_block", "forward", "prefill", "decode_step",
+           "cache_seq_axes"]
 
 _FP32_LEAVES = ("A_log", "dt_bias", "D")
 
@@ -261,8 +263,10 @@ def ssd_decode(
     rep = x.shape[2] // Bm.shape[2]
     xf = x[:, 0].to(ACC)                                         # [B,H,P]
     dtf = dt[:, 0].to(ACC)                                       # [B,H]
-    Bh = torch.repeat_interleave(Bm[:, 0], rep, dim=1).to(ACC)   # [B,H,N]
-    Ch = torch.repeat_interleave(Cm[:, 0], rep, dim=1).to(ACC)
+    # each group's B and C to its rep heads: repeat_interleave's values, as
+    # a view (no index tensor built per step)
+    Bh = Bm[:, 0, :, None].expand(-1, -1, rep, -1).flatten(1, 2).to(ACC)  # [B,H,N]
+    Ch = Cm[:, 0, :, None].expand(-1, -1, rep, -1).flatten(1, 2).to(ACC)
     decay = torch.exp(torch.clamp(dtf * A.to(ACC), -60.0, 0.0))
     S_new = state.to(ACC) * decay[..., None, None] + torch.einsum(
         "bh,bhm,bhp->bhpm", dtf, Bh, xf)
@@ -370,8 +374,10 @@ def decode_step(params: Mamba2, token: torch.Tensor, cache: Cache,
 
     Each layer's new conv tails and state are written into ``cache``'s
     stacked buffers in place (the reference returns a new cache), and the
-    returned cache shares them, with ``length`` advanced by one.  A caller
-    that wants to reuse a cache clones it first."""
+    returned cache shares them, with ``length`` advanced by one: a scalar,
+    or one length per batch row (the continuous-batching scheduler's
+    ``[B]``), which the recurrence itself never reads.  A caller that wants
+    to reuse a cache clones it first."""
     x = L.embed_tokens(params.embed, token)
     conv, ssm = cache["conv"], cache["ssm"]
     for i, blk in enumerate(params.blocks):
@@ -382,3 +388,10 @@ def decode_step(params: Mamba2, token: torch.Tensor, cache: Cache,
         ssm[i].copy_(ssm_n)
     x = L.rms_norm(x, params.ln_f, cfg.norm_eps)
     return L.unembed(x, params.embed), {**cache, "length": cache["length"] + 1}
+
+
+def cache_seq_axes(cache: Cache):
+    """Attention-free family: no growing KV, so every leaf (the conv tails,
+    the state, ``length``) stays slot-resident in the continuous-batching
+    scheduler: all ``None`` (``models.kvcache.seq_axis_tree``)."""
+    return seq_axis_tree(cache)

@@ -3,14 +3,16 @@
 ``get_model(cfg)`` returns a :class:`ModelApi` with init / forward /
 prefill / decode_step — the entry point the serving engine uses.  The
 ``dense`` and ``ssm`` families are ported; every other family raises and
-names the ROADMAP.md item that ports it.  ``loss_fn`` waits for training
-(Queue 1 item 8) and ``cache_seq_axes`` for continuous batching (item 6).
+names the ROADMAP.md item that ports it.  ``cache_seq_axes`` classifies a
+family's cache leaves for the continuous-batching scheduler
+(``serving/scheduler.py``); ``loss_fn`` waits for training (Queue 1
+item 8).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Tuple
 
 import torch
 from torch import nn
@@ -36,6 +38,9 @@ class ModelApi:
     forward: Callable[..., torch.Tensor]
     prefill: Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
     decode_step: Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
+    # cache -> tree of Optional[int]: the sequence axis of each growing KV
+    # leaf, None for slot-resident state (``models.kvcache.seq_axis_tree``)
+    cache_seq_axes: Callable[[Dict[str, Any]], Any]
 
 
 def get_model(cfg: ModelConfig, attn_backend=None) -> ModelApi:
@@ -56,6 +61,7 @@ def get_model(cfg: ModelConfig, attn_backend=None) -> ModelApi:
             prefill=lambda p, b, max_len=0: mamba2.prefill(
                 p, b["tokens"], cfg, max_len),
             decode_step=lambda p, t, c: mamba2.decode_step(p, t, c, cfg),
+            cache_seq_axes=mamba2.cache_seq_axes,
         )
     if cfg.family != "dense":
         where = _NOT_PORTED.get(cfg.family, "no ROADMAP item")
@@ -72,4 +78,5 @@ def get_model(cfg: ModelConfig, attn_backend=None) -> ModelApi:
             layout=cache_layout_for(attn, max_len)),
         decode_step=lambda p, t, c: transformer.decode_step(
             p, t, c, cfg, attn_backend=attn),
+        cache_seq_axes=transformer.cache_seq_axes,
     )

@@ -21,12 +21,16 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.backends import KVCacheLayout, get_backend
 from repro_torch.models import layers as L
 from repro_torch.models.attention import chunked_causal_attention
-from repro_torch.models.kvcache import init_attn_cache, update_layer_kv
+from repro_torch.models.kvcache import (
+    init_attn_cache,
+    seq_axis_tree,
+    update_layer_kv,
+)
 
 Cache = Dict[str, torch.Tensor]
 
 __all__ = ["Block", "Transformer", "init", "params_from_arrays", "forward",
-           "prefill", "decode_step", "param_count"]
+           "prefill", "decode_step", "cache_seq_axes", "param_count"]
 
 
 # ---------------------------------------------------------------------------
@@ -192,13 +196,19 @@ def prefill(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
     return _unembed_last(params, x[:, -1:], cfg), cache
 
 
-def _decode_attn(attn, q, k, v, k_cache, v_cache, idx, cache_len):
-    """Insert the new token's K and V at position ``idx`` (in place) and
-    run the backend over the cache's first ``cache_len`` positions.
+def _decode_attn(attn, q, k, v, k_cache, v_cache, at, cache_len):
+    """Insert the new token's K and V (in place) and run the backend over
+    the cache's first ``cache_len`` positions.  ``at`` is either one
+    position index ``[1]`` for the whole batch, or ``(rows, positions)``,
+    two ``[B]`` indices: row ``b`` writes at its own ``positions[b]``.
     Returns o [B, 1, H, D]."""
     B, _, KV, D = k.shape
-    k_cache.index_copy_(2, idx, k.to(k_cache.dtype).reshape(B, KV, 1, D))
-    v_cache.index_copy_(2, idx, v.to(v_cache.dtype).reshape(B, KV, 1, D))
+    for cache, new in ((k_cache, k), (v_cache, v)):
+        new = new.to(cache.dtype)
+        if isinstance(at, tuple):
+            cache[at[0], :, at[1]] = new.reshape(B, KV, D)
+        else:
+            cache.index_copy_(2, at, new.reshape(B, KV, 1, D))
     return attn.decode(q, k_cache, v_cache, cache_len)
 
 
@@ -215,28 +225,47 @@ def decode_step(
     cache clones it first.  The position lives on the device, so the step
     never waits on the host.
 
+    ``cache["length"]`` is a scalar (every row at one position) or a
+    ``[B]`` tensor, one position per row, as the continuous-batching
+    scheduler keeps it: each row then takes RoPE at its own position,
+    writes its K and V there and attends to its own ``length + 1`` keys.
+    A row's write position is clipped to the capacity, as the reference's
+    ``dynamic_update_slice`` clips it.
+
     ``attn_backend``: :class:`repro_torch.core.backends.AttentionBackend`
     name or instance; ``None`` resolves to the attention kind's default,
     ``torch-splitk``.  ``layout``: the :class:`KVCacheLayout` the cache was
     allocated with; when given, the cache capacity is checked against it.
     """
     attn = get_backend("attention", attn_backend)
+    S = int(cache["k"].shape[3])
     if layout is not None:
-        layout.check_capacity(int(cache["k"].shape[3]))
+        layout.check_capacity(S)
     x = L.embed_tokens(params.embed, token)
     B = x.shape[0]
     pos = cache["length"]
-    positions = pos.reshape(1, 1).expand(B, 1)
-    idx = pos.reshape(1).long()
-    cache_len = (pos + 1).reshape(1)
+    if pos.dim() == 0:
+        positions = pos.reshape(1, 1).expand(B, 1)
+        at = pos.reshape(1).long()
+    else:
+        positions = pos.reshape(B, 1)
+        at = (torch.arange(B, device=x.device), pos.clamp(max=S - 1).long())
+    cache_len = (pos + 1).reshape(-1)
     for i, block in enumerate(params.blocks):
         hn = L.rms_norm(x, block.ln_attn, cfg.norm_eps)
         q, k, v = L.qkv_project(block.attn, hn)
         q = L.apply_rope(q, positions, cfg.rope_theta)
         k = L.apply_rope(k, positions, cfg.rope_theta)
-        o = _decode_attn(attn, q, k, v, cache["k"][i], cache["v"][i], idx,
+        o = _decode_attn(attn, q, k, v, cache["k"][i], cache["v"][i], at,
                          cache_len)
         x = x + L.out_project(block.attn, o.to(x.dtype), x.dtype)
         x = _mlp_apply(block, x, cfg)
     logits = _unembed_last(params, x, cfg)
     return logits, {**cache, "length": cache["length"] + 1}
+
+
+def cache_seq_axes(cache: Cache):
+    """Growing-KV sequence axes for the continuous-batching scheduler:
+    ``k``/``v`` page into the KV pool (seq axis -2), ``length`` stays
+    slot-resident.  See :func:`repro_torch.models.kvcache.seq_axis_tree`."""
+    return seq_axis_tree(cache)

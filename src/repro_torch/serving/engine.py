@@ -6,7 +6,10 @@ the ssm family), as in the reference's device engine.  The engine runs on
 a CUDA card unless constructed with ``device="cpu"``, and everything it
 launches runs on that device: the attention backend defaults to
 ``torch-splitk``, the hand-written split-KV kernel, and the generated
-tokens stay on the device until the loop ends.
+tokens stay on the device until the loop ends.  ``generate_stream`` serves
+a stream of ragged requests with continuous batching
+(``serving/scheduler.py``), its decode step captured in a CUDA graph on the
+card.
 """
 
 from __future__ import annotations
@@ -132,7 +135,49 @@ class ServingEngine:
             steps=max_new_tokens,
         )
 
-    def generate_stream(self, requests, *args, **kwargs):
-        raise NotImplementedError(
-            "generate_stream (continuous batching over a paged KV pool) is "
-            "not in repro_torch yet: ROADMAP.md Queue 1 item 6")
+    def generate_stream(
+        self,
+        requests,                        # Sequence[scheduler.Request]
+        num_slots: int = 4,
+        max_request_len: Optional[int] = None,
+        mesh=None,
+    ):
+        """Serve a mixed-length request stream with continuous batching.
+
+        Requests are admitted into ``num_slots`` fixed decode slots as they
+        arrive and retired the step their token budget completes; KV lives
+        in a block-granular paged pool (``serving/kv_pool.py``), so slots
+        are reused without defragmenting mid-decode.  Returns a list of
+        :class:`repro_torch.serving.scheduler.RequestResult`, in the order
+        the requests finished: each bit for bit what the same request
+        served alone through a scheduler of this width and capacity gives,
+        and, against :meth:`generate` at ``max_len=slot_capacity``, the
+        same tokens with logits within 1e-4.
+
+        ``max_request_len`` bounds prompt + new tokens over the stream
+        (default: measured from ``requests``).  On the card the decode step
+        runs from a CUDA graph (:class:`RequestScheduler`).  ``mesh`` (the
+        reference's sequence-sharded step) is ROADMAP.md Queue 1 item 9 and
+        raises.
+        """
+        from repro_torch.serving.scheduler import RequestScheduler
+
+        if mesh is not None:
+            raise NotImplementedError(
+                "generate_stream(mesh=...) (the sequence-sharded step) is not "
+                "in repro_torch yet: ROADMAP.md Queue 1 item 9")
+        requests = list(requests)
+        if max_request_len is None:
+            max_request_len = max(
+                (np.asarray(r.prompt).reshape(-1).shape[0]
+                 + r.max_new_tokens + (self.cfg.frontend_tokens or 0))
+                for r in requests)
+        # Sized like route_serving_plan's policy, but from the engine's own
+        # backend layout (the plan re-routes the backend; an engine built
+        # with one must not switch).
+        layout = self.cache_layout(max_request_len)
+        sched = RequestScheduler(
+            self.model, self.params, num_slots=num_slots,
+            slot_capacity=layout.padded_len(max_request_len), layout=layout,
+            device=self.device)
+        return sched.run(requests)

@@ -20,7 +20,8 @@ from repro_torch.core.backends import (
     cache_layout_for,
 )
 
-__all__ = ["DecodePlan", "route_attention_backend", "route_decode_plan"]
+__all__ = ["DecodePlan", "ServingPlan", "route_attention_backend",
+           "route_decode_plan", "route_serving_plan"]
 
 
 @dataclasses.dataclass
@@ -37,6 +38,27 @@ class DecodePlan:
         if self.cache_layout is not None:
             return self.cache_layout
         return _layout(self.attn_backend, max_len)
+
+
+@dataclasses.dataclass
+class ServingPlan:
+    """A routed continuous-batching configuration for ``generate_stream``.
+
+    ``slot_capacity`` is the static per-slot KV capacity: the longest
+    request the stream may carry (prompt + new tokens), padded to the
+    routed backend's ``block_k``; every admission prefills at this capacity
+    so the decode step's shapes never change.  ``num_blocks`` sizes the
+    :class:`repro_torch.serving.kv_pool.KVBlockPool` for full slot
+    occupancy plus the reserved null and sink pages."""
+
+    decode: DecodePlan
+    num_slots: int
+    slot_capacity: int
+    num_blocks: int
+
+    @property
+    def layout(self) -> KVCacheLayout:
+        return self.decode.layout_for(self.slot_capacity)
 
 
 def _layout(name: str, max_len: int) -> KVCacheLayout:
@@ -79,3 +101,21 @@ def route_decode_plan(cfg: ModelConfig, max_len: Optional[int] = None,
     if max_len is None:
         return DecodePlan(attn_backend=name)
     return DecodePlan(attn_backend=name, cache_layout=_layout(name, max_len))
+
+
+def route_serving_plan(cfg: ModelConfig, max_request_len: int,
+                       num_slots: int = 4,
+                       platform: Optional[str] = None) -> ServingPlan:
+    """Slot and bucket policy for the continuous-batching scheduler: route
+    the decode backend for the capacity on ``platform`` (required, as for
+    :func:`route_attention_backend`), pad the capacity to its block size,
+    and size the pool so ``num_slots`` maximal requests fit at once."""
+    from repro_torch.serving.kv_pool import RESERVED_BLOCKS
+
+    decode = route_decode_plan(cfg, max_len=max_request_len,
+                               platform=platform)
+    layout = decode.layout_for(max_request_len)
+    cap = layout.padded_len(max_request_len)
+    blocks = RESERVED_BLOCKS + num_slots * layout.blocks_for(cap)
+    return ServingPlan(decode=decode, num_slots=num_slots,
+                       slot_capacity=cap, num_blocks=blocks)

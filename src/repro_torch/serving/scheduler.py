@@ -1,0 +1,367 @@
+"""Continuous-batching request scheduler over a paged KV pool.
+
+The static ``ServingEngine.generate`` pads one batch to one length and
+shares one ``cache_len`` across every request.  This module serves a
+stream instead, with admission control:
+
+* a fixed-slot decode batch (``num_slots``): one decode step whose shapes
+  never change, so admitting or retiring a request only writes the step's
+  inputs in place.  On a CUDA card the step is captured once in a
+  :class:`torch.cuda.CUDAGraph` and replayed every step (``captures`` stays
+  at 1 over the scheduler's life, the port's form of the reference's
+  ``_step_fn._cache_size() == 1``); on the CPU the same step runs eagerly;
+* per-slot caches rebuilt each step from the :class:`KVBlockPool` via block
+  tables, so a request's pages are scattered physically but contiguous
+  logically (defrag-free reuse);
+* per-slot ``length``: the step runs the family's ``decode_step`` over all
+  slots at once with one length per slot (``cache["length"]`` of shape
+  ``[slots]``), where the reference maps a B = 1 step over the slots with
+  ``jax.vmap``; the decode kernel reads one length per batch row;
+* requests admitted mid-decode as slots free up, retired the step their
+  token budget completes; admission order is FIFO over (arrival, rid).
+
+The step is gather, ``decode_step``, the write of each slot's new K and V
+to its page (an inactive slot's to the sink page), then argmax.  No
+operation in it synchronises with the host, and outputs that it makes as
+new tensors (``length + 1``, the logits, the next tokens) are copied into
+the scheduler's own tensors, which the graph holds.  Only admission and
+retirement upload the block tables and the active mask.  The tokens each
+step emits stay on the device until the stream ends.
+
+Bitwise contract (``tests/test_torch_continuous_batching.py``): a request
+served in a mixed stream gives the same tokens and final-step logits, bit
+for bit, as the same request served alone through a scheduler with the
+same ``num_slots`` and slot capacity: the step's products run at M =
+``num_slots`` either way, a row never reads another, and masked positions
+contribute exactly +0.0 whatever stale values reused pages hold (see
+``kv_pool.py``).  Against ``generate`` at B = 1, whose products run at
+M = 1, the tokens are identical and the logits agree within 1e-4.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core.backends import KVCacheLayout
+from repro_torch.kernels.decode_attention import ops as decode_ops
+from repro_torch.serving.kv_pool import (
+    RESERVED_BLOCKS,
+    KVBlockPool,
+    merge_cache,
+    split_cache,
+    tree_map,
+)
+
+__all__ = ["Request", "RequestResult", "RequestScheduler"]
+
+WARMUP_STEPS = 2  # eager steps on the capture stream before the capture
+
+
+@dataclasses.dataclass
+class Request:
+    """One generation request in the stream."""
+
+    rid: int
+    prompt: np.ndarray                 # [S_prompt] int32
+    max_new_tokens: int
+    extra: Optional[Dict[str, np.ndarray]] = None  # vlm embeds / encdec frames
+    arrival: int = 0                   # earliest scheduler step for admission
+
+
+@dataclasses.dataclass
+class RequestResult:
+    """Per-request output, comparable to the static path: ``tokens``
+    matches ``GenerationResult.tokens[r]`` and ``final_logits`` matches
+    ``GenerationResult.prefill_logits[r]`` (the last decode step's
+    logits)."""
+
+    rid: int
+    tokens: np.ndarray                 # [max_new_tokens] int32
+    final_logits: np.ndarray           # [vocab] fp32: last decode step's logits
+    prompt_len: int
+    admitted_step: int
+    finished_step: int
+
+
+@dataclasses.dataclass
+class _Slot:
+    request: Request
+    slot: int
+    table: np.ndarray
+    n_blocks: int
+    first: int                         # the token log's row of its first token
+    admitted_step: int
+    emitted: int = 0
+
+
+class RequestScheduler:
+    """Continuous batching over ``num_slots`` fixed decode slots.
+
+    ``model`` is a :class:`repro_torch.models.registry.ModelApi` and
+    ``params`` its module.  ``slot_capacity`` is the per-slot cache
+    capacity: every admitted request prefills (``model.prefill``) at it, so
+    gathered shapes are constant; it must be a ``layout.block_k``
+    multiple.  ``num_blocks=None`` sizes the pool for full occupancy
+    (every slot holding a maximal request) plus the two reserved pages.
+
+    ``device``: where the params live and the step runs, ``"cuda"`` by
+    default (which raises where no card is present) or ``"cpu"``.
+    ``graph``: capture the step in a CUDA graph (default: on CUDA); a
+    failed capture raises.  ``graph=False`` runs the same step eagerly.
+    """
+
+    def __init__(self, model, params, num_slots: int, slot_capacity: int,
+                 layout: Optional[KVCacheLayout] = None,
+                 num_blocks: Optional[int] = None, device="cuda",
+                 graph: Optional[bool] = None):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "RequestScheduler runs on a CUDA device by default and none "
+                "is available; pass device='cpu' to serve on the CPU")
+        if self.device.type not in ("cuda", "cpu"):
+            raise ValueError(f"RequestScheduler runs on cuda or cpu, not {device!r}")
+        self.graph = self.device.type == "cuda" if graph is None else bool(graph)
+        if self.graph and self.device.type != "cuda":
+            raise ValueError("a CUDA graph of the step needs device='cuda'")
+        p = next(iter(params.parameters()))
+        if p.device.type != self.device.type:
+            raise ValueError(f"params are on {p.device}, the scheduler on "
+                             f"{self.device}")
+        self.model = model
+        self.params = params
+        self.num_slots = int(num_slots)
+        self.layout = layout or KVCacheLayout()
+        self.layout.check_capacity(slot_capacity)
+        self.slot_capacity = int(slot_capacity)
+        if num_blocks is None:
+            num_blocks = (RESERVED_BLOCKS + self.num_slots
+                          * self.layout.blocks_for(slot_capacity))
+
+        # The pool and the stacked slot state from one template prefill
+        # (shapes only matter; a 1-token prompt is the cheapest).
+        logits, template = model.prefill(
+            params, {"tokens": torch.zeros((1, 1), dtype=torch.long,
+                                           device=self.device)},
+            self.slot_capacity)
+        self.seq_axes = model.cache_seq_axes(template)
+        self.pool = KVBlockPool.build(template, self.seq_axes, self.layout,
+                                      num_blocks)
+        S = self.num_slots
+
+        def stacked(ax, leaf):
+            # a scalar (length) becomes [slots]; [L, 1, ...] becomes
+            # [L, slots, ...]: the batch axis of the family's cache
+            if ax is not None:
+                return None
+            if leaf.dim() == 0:
+                return torch.zeros((S,), dtype=leaf.dtype, device=self.device)
+            if leaf.shape[1] != 1:
+                raise ValueError(f"a slot-resident leaf is [L, 1, ...] for "
+                                 f"one slot, got {tuple(leaf.shape)}")
+            return torch.zeros((leaf.shape[0], S) + tuple(leaf.shape[2:]),
+                               dtype=leaf.dtype, device=self.device)
+
+        # The step's inputs and outputs, written in place: a captured graph
+        # reads and writes these very tensors.
+        self._state = tree_map(stacked, self.seq_axes, template)
+        self._tokens = torch.zeros((S, 1), dtype=torch.long, device=self.device)
+        self._logits = torch.zeros((S, logits.shape[-1]), dtype=logits.dtype,
+                                   device=self.device)
+        self._tables = np.zeros((S, self.pool.table_width), np.int32)
+        self._active = np.zeros((S,), bool)
+        self._tables_dev = torch.zeros((S, self.pool.table_width),
+                                       dtype=torch.long, device=self.device)
+        self._active_dev = torch.zeros((S,), dtype=torch.bool,
+                                       device=self.device)
+        self._slots: List[Optional[_Slot]] = [None] * S
+        self.steps_run = 0          # decode steps executed (utilization)
+        self.tokens_emitted = 0
+        self.captures = 0           # CUDA graphs captured: 1 on CUDA, 0 eager
+        self._graph: Optional[torch.cuda.CUDAGraph] = None
+        self._graph_scratch = None  # the decode kernel's scratch the graph holds
+        if self.graph:
+            self._capture()
+
+    # ------------------------------------------------------------------ #
+    # the fixed-shape step
+
+    def _step_body(self) -> None:
+        """One decode step over every slot, reading and writing only the
+        scheduler's own tensors and the pool's pages."""
+        state, pool = self._state, self.pool
+        positions = state["length"].clone()                  # [slots]
+        paged = pool.gather(pool.buffers, self._tables_dev)
+        cache = merge_cache(paged, state, self.seq_axes)
+        logits, new_cache = self.model.decode_step(self.params, self._tokens,
+                                                   cache)
+        new_paged, new_state = split_cache(new_cache, self.seq_axes)
+        pool.scatter_token(pool.buffers, pool.chunks_at(new_paged, positions),
+                           self._tables_dev, positions, self._active_dev)
+
+        def keep(ax, old, new):
+            if ax is None and new is not old:
+                old.copy_(new)
+
+        tree_map(keep, self.seq_axes, state, new_state)
+        self._logits.copy_(logits[:, -1])
+        self._tokens.copy_(logits[:, -1:].argmax(dim=-1))
+
+    def _capture(self) -> None:
+        """Warm the step up on a side stream (the decode wrapper's split
+        plan and its per-stream scratch are made there, and the kernel
+        leaves its tickets at zero), then capture it once on that stream.
+        Every slot is vacant, so the warm-up only writes what admission
+        overwrites.  The graph holds the addresses of the scratch the
+        wrapper kept for that stream, so the scheduler takes it over
+        (``decode_ops.release_scratch``): a later stream that gets the same
+        handle from torch's pool gets scratch of its own, and the graph's
+        lives as long as the graph."""
+        stream = torch.cuda.Stream(self.device)
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(stream):
+            for _ in range(WARMUP_STEPS):
+                self._step_body()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            self._step_body()
+        torch.cuda.current_stream(self.device).wait_stream(stream)
+        self._graph_scratch = decode_ops.release_scratch(self.device,
+                                                         stream.cuda_stream)
+        self._graph = graph
+        self.captures += 1
+
+    def _launch_step(self) -> None:
+        if self._graph is None:
+            self._step_body()
+        else:
+            self._graph.replay()
+
+    # ------------------------------------------------------------------ #
+    # host-side admission / retirement
+
+    def _need(self, req: Request) -> int:
+        return (len(np.asarray(req.prompt).reshape(-1)) + req.max_new_tokens
+                + (self.model.cfg.frontend_tokens or 0))
+
+    def _upload(self) -> None:
+        self._tables_dev.copy_(torch.from_numpy(self._tables))
+        self._active_dev.copy_(torch.from_numpy(self._active))
+
+    def _admit(self, req: Request, step_idx: int, row: int) -> None:
+        slot = int(np.flatnonzero(~self._active)[0])
+        prompt = torch.as_tensor(np.asarray(req.prompt, np.int64).reshape(1, -1),
+                                 device=self.device)
+        logits, cache = self.model.prefill(self.params, {"tokens": prompt},
+                                           self.slot_capacity)
+        need = self._need(req)
+        n_blocks = (self.layout.blocks_for(need)
+                    if self.pool.table_width else 0)
+        paged, _ = split_cache(cache, self.seq_axes)
+        table = self.pool.admit(paged, need)     # may raise PoolExhausted
+        self._tables[slot] = table
+
+        def write(ax, st, leaf):
+            if ax is None:
+                dst = st[slot] if leaf.dim() == 0 else st[:, slot]
+                dst.copy_(leaf if leaf.dim() == 0 else leaf[:, 0])
+
+        tree_map(write, self.seq_axes, self._state, cache)
+        self._tokens[slot].copy_(logits[0, -1:].argmax(dim=-1))
+        self._active[slot] = True
+        self._upload()
+        self._slots[slot] = _Slot(request=req, slot=slot, table=table,
+                                  n_blocks=n_blocks,
+                                  first=row, admitted_step=step_idx)
+
+    def _can_admit(self, req: Request) -> bool:
+        if self._active.all():
+            return False
+        return (self.layout.blocks_for(self._need(req))
+                <= self.pool.allocator.free_blocks)
+
+    def _retire(self, slot: int) -> None:
+        st = self._slots[slot]
+        self.pool.retire(st.table, st.n_blocks)
+        self._active[slot] = False
+        self._upload()
+        self._slots[slot] = None
+        # Park the vacant slot at length 0.  Its (discarded) work grows the
+        # length a step at a time, and every index it reaches is clipped:
+        # the K/V write and the chunk it reads back to the capacity, its
+        # page to the sink, its cache_len by the kernel.
+        self._state["length"][slot] = 0
+
+    # ------------------------------------------------------------------ #
+
+    def run(self, requests: Sequence[Request],
+            around_step: Optional[Callable[[Callable[[], None]], None]] = None
+            ) -> List[RequestResult]:
+        """Serve the whole stream; returns results ordered by completion.
+        A stream that has not drained within its step budget (every token
+        and arrival, plus slack) raises.  ``around_step``, where given, is
+        called once a decode step with the step's launch, which it must
+        call once: a caller that times or profiles single steps wraps it."""
+        queue = sorted(requests, key=lambda r: (r.arrival, r.rid))
+        for r in queue:
+            if r.extra:
+                raise NotImplementedError(
+                    "extra inputs belong to the vlm/encdec families: "
+                    "ROADMAP.md Queue 1 items 4 and 5")
+            if self._need(r) > self.slot_capacity:
+                raise ValueError(
+                    f"request {r.rid} needs capacity {self._need(r)} > "
+                    f"slot_capacity {self.slot_capacity}; raise "
+                    f"max_request_len")
+        budget = (sum(r.max_new_tokens for r in queue) + len(queue)
+                  + max((r.arrival for r in queue), default=0) + 8)
+        # row k: every slot's input token of the stream's k-th decode step
+        log = torch.zeros((budget + 1, self.num_slots), dtype=torch.long,
+                          device=self.device)
+        done: List[tuple] = []      # (slot record, final logits, finish step)
+        step_idx = row = 0
+        while queue or self._active.any():
+            if step_idx > budget:
+                raise RuntimeError(
+                    f"scheduler exceeded {budget} steps "
+                    f"({len(done)}/{len(queue) + len(done)} done)")
+            # FIFO admission of every arrived request that fits right now.
+            while queue and queue[0].arrival <= step_idx \
+                    and self._can_admit(queue[0]):
+                self._admit(queue.pop(0), step_idx, row)
+            if not self._active.any():
+                step_idx += 1           # idle tick: waiting on a future arrival
+                continue
+            log[row].copy_(self._tokens[:, 0])
+            if around_step is None:
+                self._launch_step()
+            else:
+                around_step(self._launch_step)
+            self.steps_run += 1
+            for slot, st in enumerate(self._slots):
+                if st is None:
+                    continue
+                st.emitted += 1
+                self.tokens_emitted += 1
+                if st.emitted == st.request.max_new_tokens:
+                    done.append((st, self._logits[slot].clone(), step_idx))
+                    self._retire(slot)
+            row += 1
+            step_idx += 1
+        if not done:
+            return []
+        tokens = log[:row].cpu().numpy()
+        finals = torch.stack([d[1] for d in done]).cpu().numpy()
+        return [RequestResult(
+            rid=st.request.rid,
+            tokens=tokens[st.first:st.first + st.emitted, st.slot]
+            .astype(np.int32),
+            final_logits=finals[i],
+            prompt_len=int(np.asarray(st.request.prompt).reshape(-1).shape[0]),
+            admitted_step=st.admitted_step,
+            finished_step=fin,
+        ) for i, (st, _, fin) in enumerate(done)]

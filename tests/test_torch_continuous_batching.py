@@ -1,0 +1,618 @@
+"""The port's continuous batching (``repro_torch.serving.scheduler`` over
+``serving.kv_pool``) against the JAX package's scheduler, on the CPU, at
+the ``reduced()`` sizes of internlm2-1.8b (dense) and mamba2-370m (ssm).
+
+Three contracts, for every backend, arrival order and the two-wave
+page-reuse stream:
+
+* **inside the port, bit for bit**: a request served in a mixed stream gives
+  the same tokens and final-step logits as the same request served alone
+  through a scheduler of the same width and slot capacity (the step's
+  products run at M = ``num_slots`` either way; this is what shows that
+  slots do not leak into each other and reused pages leak no stale data);
+* **against the port's ``generate`` at B = 1**: identical tokens, logits
+  within 1e-4 (its products run at M = 1, whose rows are not bit for bit
+  those of M = 2 on this CPU);
+* **against the reference's ``RequestScheduler``** on the same fp32-cast
+  params: identical tokens, logits within 1e-4, the reference's fp32 model
+  tolerance (its own bitwise asserts miss by ~1 ulp on this image).
+
+Also here: the allocator's random interleavings (run beside the reference's
+allocator on the same seeds), freed pages never read by a live request,
+the pool's block-table round trips, the cache classification against the
+reference's ``seq_axis_tree`` key by key, continuous against padded static
+batching, the up-front oversize check, the decode backends with one cache
+length per batch row (bit for bit the per-row calls, and within 1e-5 of
+the reference's Pallas kernel under ``jax.vmap`` in interpret mode), and
+``transformer.decode_step`` with ``[B]`` lengths against B = 1 steps
+(1e-4).  The CUDA graph of the step is checked on the card
+(``tests/test_torch_kernels_gpu.py``, ``chip_smoke.py``).
+"""
+
+import dataclasses
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+from _hypothesis_compat import given, settings, st
+
+pytest.importorskip("jax")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import get_config as ref_get_config  # noqa: E402
+from repro.configs.base import ShapeConfig  # noqa: E402
+from repro.core.backends import ChunkedLseAttention as RefChunked  # noqa: E402
+from repro.core.backends import PallasSplitKAttention  # noqa: E402
+from repro.kernels.decode_attention import ops as ref_decode_ops  # noqa: E402
+from repro.models import mamba2 as ref_mamba2  # noqa: E402
+from repro.models import transformer as ref_transformer  # noqa: E402
+from repro.models.registry import cache_specs  # noqa: E402
+from repro.models.registry import get_model as ref_get_model  # noqa: E402
+from repro.serving import kv_pool as ref_kv_pool  # noqa: E402
+from repro.serving import router as ref_router  # noqa: E402
+from repro.serving.engine import ServingEngine as RefEngine  # noqa: E402
+from repro.serving.scheduler import Request as RefRequest  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.backends import (  # noqa: E402
+    ChunkedLseAttention,
+    DenseRefAttention,
+    KVCacheLayout,
+    TorchSplitKAttention,
+)
+from repro_torch.kernels.decode_attention import ops as decode_ops  # noqa: E402
+from repro_torch.models import kvcache, mamba2, transformer  # noqa: E402
+from repro_torch.models.registry import get_model  # noqa: E402
+from repro_torch.serving import router  # noqa: E402
+from repro_torch.serving.engine import ServingEngine  # noqa: E402
+from repro_torch.serving.kv_pool import (  # noqa: E402
+    RESERVED_BLOCKS,
+    SINK_BLOCK,
+    BlockAllocator,
+    KVBlockPool,
+    PoolExhausted,
+    split_cache,
+)
+from repro_torch.serving.scheduler import Request, RequestScheduler  # noqa: E402
+
+BLOCK_K = 4          # a small kernel block, so pool pages are a few tokens
+NUM_SLOTS = 2
+TOL = dict(rtol=1e-4, atol=1e-4)
+KERNEL_TOL = dict(rtol=1e-5, atol=1e-5)
+
+FAMILIES = {"dense": ("internlm2-1.8b", ref_transformer, transformer),
+            "ssm": ("mamba2-370m", ref_mamba2, mamba2)}
+# the ssm family has no decode attention: one (unused) backend
+BACKENDS = {"dense": ("dense-ref", "chunked-lse", "torch-splitk"),
+            "ssm": ("dense-ref",)}
+PORT_BACKEND = {
+    "dense-ref": lambda: DenseRefAttention(),
+    "chunked-lse": lambda: ChunkedLseAttention(kv_chunk=3),
+    "torch-splitk": lambda: TorchSplitKAttention(block_k=BLOCK_K, device="cpu"),
+}
+REF_BACKEND = {
+    "dense-ref": lambda: "dense-ref",
+    "chunked-lse": lambda: RefChunked(kv_chunk=3),
+    "torch-splitk": lambda: PallasSplitKAttention(block_k=BLOCK_K),
+}
+ARRIVAL_ORDERS = {
+    "together": lambda n: [0] * n,
+    "staggered": lambda n: list(range(n)),
+    "reversed": lambda n: list(range(n - 1, -1, -1)),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _family(fam):
+    """(family, port cfg, reference cfg, reference fp32 params, the port's
+    fp32 params): the reference's init, cast to fp32 and carried over."""
+    arch, ref_mod, mod = FAMILIES[fam]
+    cfg, ref_cfg = get_config(arch).reduced(), ref_get_config(arch).reduced()
+    params = jax.tree.map(lambda a: a.astype(jnp.float32),
+                          ref_mod.init(jax.random.key(0), ref_cfg))
+    port = mod.params_from_arrays(cfg, jax.tree.map(np.asarray, params),
+                                  device="cpu", dtype=torch.float32)
+    return fam, cfg, ref_cfg, params, port
+
+
+@pytest.fixture(scope="module", params=sorted(FAMILIES))
+def family(request):
+    return _family(request.param)
+
+
+def _mk_requests(cfg, rng, n, arrivals):
+    """Ragged prompts (2..7) and budgets (1..4), as the reference's suite."""
+    return [Request(rid=i,
+                    prompt=rng.integers(0, cfg.vocab_size,
+                                        (int(rng.integers(2, 8)),)).astype(np.int32),
+                    max_new_tokens=int(rng.integers(1, 5)),
+                    arrival=int(arrivals[i]))
+            for i in range(n)]
+
+
+def _ref_requests(reqs):
+    return [RefRequest(rid=r.rid, prompt=r.prompt,
+                       max_new_tokens=r.max_new_tokens, arrival=r.arrival)
+            for r in reqs]
+
+
+def _stream_capacity(eng, reqs):
+    need = max(np.asarray(r.prompt).reshape(-1).shape[0] + r.max_new_tokens
+               for r in reqs)
+    return eng.cache_layout(need).padded_len(need)
+
+
+ENGINE_CASES = [(fam, be) for fam in sorted(FAMILIES) for be in BACKENDS[fam]]
+
+
+@pytest.fixture(scope="module", params=ENGINE_CASES,
+                ids=[f"{f}-{b}" for f, b in ENGINE_CASES])
+def diff_case(request):
+    """(port engine, reference engine, requests, capacity, solo, static):
+    each request's tokens and final logits served alone through a port
+    scheduler of the stream's width and capacity (``solo``), and through
+    the port's ``generate`` at B = 1 and ``max_len = capacity``
+    (``static``)."""
+    fam, backend = request.param
+    _, cfg, ref_cfg, params, port = _family(fam)
+    eng = ServingEngine(cfg, params=port, device="cpu",
+                        attn_backend=PORT_BACKEND[backend]())
+    ref_eng = RefEngine(ref_cfg, params=params,
+                        attn_backend=REF_BACKEND[backend]())
+    reqs = _mk_requests(cfg, np.random.default_rng(7), 4, np.zeros(4, int))
+    cap = _stream_capacity(eng, reqs)
+    assert cap == ref_eng.cache_layout(cap).padded_len(cap)
+    solo, static = {}, {}
+    for r in reqs:
+        res = eng.generate_stream([r], num_slots=NUM_SLOTS, max_request_len=cap)
+        solo[r.rid] = (res[0].tokens, res[0].final_logits)
+        g = eng.generate(np.asarray(r.prompt)[None], r.max_new_tokens,
+                         max_len=cap)
+        static[r.rid] = (g.tokens[0], g.prefill_logits[0])
+    return eng, ref_eng, reqs, cap, solo, static
+
+
+def _hold(results, ref_results, solo, static, n_base, label):
+    """The three contracts, request by request."""
+    ref = {r.rid: r for r in ref_results}
+    assert sorted(ref) == sorted(r.rid for r in results)
+    for res in results:
+        base = res.rid % n_base
+        msg = f"{label} rid={res.rid}"
+        assert res.final_logits.dtype == np.float32
+        np.testing.assert_array_equal(res.tokens, solo[base][0], err_msg=msg)
+        assert np.array_equal(res.final_logits, solo[base][1]), \
+            f"{msg}: logits not bit for bit the solo run's"
+        np.testing.assert_array_equal(res.tokens, static[base][0], err_msg=msg)
+        np.testing.assert_allclose(res.final_logits, static[base][1],
+                                   err_msg=msg, **TOL)
+        np.testing.assert_array_equal(res.tokens, ref[res.rid].tokens,
+                                      err_msg=msg)
+        np.testing.assert_allclose(res.final_logits, ref[res.rid].final_logits,
+                                   err_msg=msg, **TOL)
+
+
+class TestDifferentialParity:
+    """Stream ≡ solo bit for bit; ≈ ``generate`` and the reference."""
+
+    @pytest.mark.parametrize("order", sorted(ARRIVAL_ORDERS))
+    def test_stream_matches_solo_static_and_reference(self, diff_case, order):
+        eng, ref_eng, base, cap, solo, static = diff_case
+        arrivals = ARRIVAL_ORDERS[order](len(base))
+        reqs = [dataclasses.replace(r, arrival=a) for r, a in zip(base, arrivals)]
+        results = eng.generate_stream(reqs, num_slots=NUM_SLOTS,
+                                      max_request_len=cap)
+        want = ref_eng.generate_stream(_ref_requests(reqs), num_slots=NUM_SLOTS,
+                                       max_request_len=cap)
+        _hold(results, want, solo, static, len(base), order)
+
+    def test_mid_stream_admission_reuses_freed_pages(self, diff_case):
+        """Two waves of the same requests under new rids: wave 2 decodes on
+        pages wave 1 dirtied, and no stale value reaches its logits."""
+        eng, ref_eng, base, cap, solo, static = diff_case
+        wave2 = [dataclasses.replace(r, rid=r.rid + len(base), arrival=3)
+                 for r in base]
+        results = eng.generate_stream(list(base) + wave2, num_slots=NUM_SLOTS,
+                                      max_request_len=cap)
+        want = ref_eng.generate_stream(_ref_requests(list(base) + wave2),
+                                       num_slots=NUM_SLOTS, max_request_len=cap)
+        assert len(results) == 2 * len(base)
+        _hold(results, want, solo, static, len(base), "two waves")
+
+
+def _dense_engine():
+    cfg = get_config("internlm2-1.8b").reduced()
+    return cfg, ServingEngine(cfg, device="cpu", attn_backend=TorchSplitKAttention(
+        block_k=BLOCK_K, device="cpu"))
+
+
+class TestScheduler:
+    def test_ragged_stream_beats_padded_static_batching(self):
+        """On a ragged stream continuous batching spends fewer slot-steps
+        than padded static batches of the same width (every slot of a
+        static batch decodes until the batch's longest budget)."""
+        cfg, eng = _dense_engine()
+        rng = np.random.default_rng(11)
+        budgets = [1, 8, 1, 8, 1, 8]
+        reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
+                                                   (4,)).astype(np.int32),
+                        max_new_tokens=b) for i, b in enumerate(budgets)]
+        cap = _stream_capacity(eng, reqs)
+        sched = RequestScheduler(eng.model, eng.params,
+                                 num_slots=NUM_SLOTS, slot_capacity=cap,
+                                 layout=eng.cache_layout(cap), device="cpu")
+        sched.run(reqs)
+        continuous = sched.steps_run * NUM_SLOTS
+        static = sum(max(budgets[i:i + NUM_SLOTS]) * NUM_SLOTS
+                     for i in range(0, len(budgets), NUM_SLOTS))
+        assert sched.tokens_emitted == sum(budgets)
+        assert continuous < static, (continuous, static)
+
+    def test_oversized_request_rejected_up_front(self):
+        cfg, eng = _dense_engine()
+        layout = eng.cache_layout(8)
+        sched = RequestScheduler(eng.model, eng.params, num_slots=2,
+                                 slot_capacity=layout.padded_len(8),
+                                 layout=layout, device="cpu")
+        big = Request(rid=0, prompt=np.arange(4, dtype=np.int32),
+                      max_new_tokens=64)
+        with pytest.raises(ValueError, match="slot_capacity"):
+            sched.run([big])
+        assert sched.steps_run == 0
+
+    def test_admission_and_retirement_write_the_step_inputs_in_place(self):
+        """Nine requests churning through three slots: the step's inputs
+        and outputs (tokens, tables, mask, logits, slot state, pages) stay
+        the same tensors, as a captured graph needs; on the CPU nothing is
+        captured, and every page comes back."""
+        cfg, eng = _dense_engine()
+        rng = np.random.default_rng(3)
+        reqs = [Request(rid=i, prompt=rng.integers(
+                    0, cfg.vocab_size, (int(rng.integers(2, 8)),)).astype(np.int32),
+                    max_new_tokens=int(rng.integers(1, 6)),
+                    arrival=int(rng.integers(0, 6))) for i in range(9)]
+        cap = _stream_capacity(eng, reqs)
+        sched = RequestScheduler(eng.model, eng.params, num_slots=3,
+                                 slot_capacity=cap,
+                                 layout=eng.cache_layout(cap), device="cpu")
+
+        def ptrs():
+            ts = [sched._tokens, sched._tables_dev, sched._active_dev,
+                  sched._logits, sched._state["length"], sched.pool.buffers["k"],
+                  sched.pool.buffers["v"]]
+            return [t.data_ptr() for t in ts]
+
+        before = ptrs()
+        before_launches = dict(decode_ops.LAUNCHES)
+        res = sched.run(reqs)
+        assert len(res) == 9 and sorted(r.rid for r in res) == list(range(9))
+        assert ptrs() == before
+        assert sched.graph is False and sched.captures == 0
+        assert sched.pool.allocator.live_blocks == 0
+        assert sched.tokens_emitted == sum(r.max_new_tokens for r in reqs)
+        assert decode_ops.LAUNCHES == before_launches  # the CPU launches none
+
+    def test_a_slot_idling_past_the_capacity_stays_in_bounds(self):
+        """Requests one after another through three slots: the two slots
+        that stay vacant run the (discarded) step far past the capacity,
+        whose every index is clipped, and each request is bit for bit
+        itself served alone."""
+        cfg, eng = _dense_engine()
+        rng = np.random.default_rng(4)
+        reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, (5,)),
+                        max_new_tokens=7, arrival=8 * i) for i in range(4)]
+        cap = _stream_capacity(eng, reqs)
+        sched = RequestScheduler(eng.model, eng.params, num_slots=3,
+                                 slot_capacity=cap,
+                                 layout=eng.cache_layout(cap), device="cpu")
+        got = sched.run(reqs)
+        assert int(sched._state["length"].max()) > cap
+        for res in got:
+            alone = sched.run([dataclasses.replace(reqs[res.rid], arrival=0)])[0]
+            np.testing.assert_array_equal(res.tokens, alone.tokens)
+            assert np.array_equal(res.final_logits, alone.final_logits)
+
+    def test_devices_graph_flag_and_mesh(self, monkeypatch):
+        cfg, eng = _dense_engine()
+        with pytest.raises(ValueError, match="CUDA graph"):
+            RequestScheduler(eng.model, eng.params, 2, 8, device="cpu",
+                             graph=True)
+        with pytest.raises(NotImplementedError, match="item 9"):
+            eng.generate_stream([], mesh=object())
+        with pytest.raises(NotImplementedError, match="items 4 and 5"):
+            eng.generate_stream([Request(0, np.arange(3), 2,
+                                         extra={"frames": np.zeros(1)})])
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            RequestScheduler(eng.model, eng.params, 2, 8)
+
+    def test_serving_plan_matches_the_reference(self):
+        for arch in ("internlm2-1.8b", "mamba2-370m"):
+            cfg, ref_cfg = get_config(arch), ref_get_config(arch)
+            for n, (plat, ref_plat) in ((576, ("cuda", "tpu")), (576, ("cpu", "cpu")),
+                                        (9000, ("cpu", "cpu")), (20, ("cuda", "tpu"))):
+                got = router.route_serving_plan(cfg, n, num_slots=8, platform=plat)
+                want = ref_router.route_serving_plan(ref_cfg, n, num_slots=8,
+                                                     platform=ref_plat)
+                assert (got.slot_capacity, got.num_blocks, got.num_slots) == (
+                    want.slot_capacity, want.num_blocks, want.num_slots)
+                assert got.layout.block_k == want.layout.block_k
+        plan = router.route_serving_plan(get_config("internlm2-1.8b"), 576,
+                                         num_slots=8, platform="cuda")
+        assert plan.decode.attn_backend == "torch-splitk"
+        assert (plan.slot_capacity, plan.num_blocks) == (640, 2 + 8 * 5)
+
+
+# ---------------------------------------------------------------------------
+# BlockAllocator / KVBlockPool properties
+# ---------------------------------------------------------------------------
+
+
+class TestBlockAllocatorProperties:
+    @settings(max_examples=20, deadline=None)
+    @given(seed=st.integers(min_value=0, max_value=99999),
+           num_blocks=st.integers(min_value=3, max_value=64))
+    def test_random_interleavings_keep_invariants(self, seed, num_blocks):
+        """Random admit/retire interleavings, run on the port's allocator
+        and the reference's side by side: the same pages handed out, a live
+        page never handed out again, frees reject non-live pages, and the
+        pool returns to fully free once every request retires."""
+        rng = np.random.default_rng(seed)
+        alloc = BlockAllocator(num_blocks)
+        ref = ref_kv_pool.BlockAllocator(num_blocks)
+        total_free = alloc.free_blocks
+        live = {}
+        ever = set()
+        for step in range(40):
+            if live and rng.random() < 0.45:
+                rid = list(live)[int(rng.integers(len(live)))]
+                pages = live.pop(rid)
+                alloc.free(pages)
+                ref.free(pages)
+            else:
+                n = int(rng.integers(1, 4))
+                if n > alloc.free_blocks:
+                    with pytest.raises(PoolExhausted):
+                        alloc.alloc(n)
+                    continue
+                ids = alloc.alloc(n)
+                assert ids == ref.alloc(n)
+                flat = [b for pages in live.values() for b in pages]
+                assert not set(ids) & set(flat), "double allocation"
+                assert all(b >= RESERVED_BLOCKS for b in ids), \
+                    "reserved page handed out"
+                live[step] = ids
+                ever.update(ids)
+            assert alloc.free_blocks == ref.free_blocks
+        for pages in live.values():
+            alloc.free(pages)
+        assert alloc.free_blocks == total_free
+        assert alloc.live_blocks == 0
+        if ever:
+            with pytest.raises(ValueError):
+                alloc.free([next(iter(ever))])
+
+    def test_freed_page_never_read_by_live_request(self):
+        """Inactive slots' writes land in the sink page, so a page freed
+        and handed to a live request is only ever written by its owner;
+        the null page is never written."""
+        layout = KVCacheLayout(block_k=2)
+        shape = (1, 1, 2, 8, 3)                      # [L, B, KV, S, D]
+        template = {"k": torch.zeros(shape), "v": torch.zeros(shape),
+                    "length": torch.zeros((), dtype=torch.int32)}
+        axes = kvcache.seq_axis_tree(template)
+        pool = KVBlockPool.build(template, axes, layout, num_blocks=12)
+        cache = {"k": torch.arange(float(np.prod(shape))).reshape(shape) + 1.0,
+                 "v": torch.zeros(shape), "length": None}
+        table = pool.admit(split_cache(cache, axes)[0], 8)
+        owned = torch.as_tensor(table[:4], dtype=torch.long)
+        before = pool.buffers["k"][owned].clone()
+        chunks = {"k": torch.full((1, 1, 2, 3), -7.0),   # [L, slots, KV, D]
+                  "v": torch.full((1, 1, 2, 3), -7.0), "length": None}
+        tables = torch.as_tensor(table[None], dtype=torch.long)
+        pool.scatter_token(pool.buffers, chunks, tables,
+                           torch.tensor([5], dtype=torch.int32),
+                           torch.tensor([False]))
+        assert torch.equal(pool.buffers["k"][owned], before)
+        assert bool((pool.buffers["k"][SINK_BLOCK, 1] == -7.0).all())
+        assert bool((pool.buffers["k"][0] == 0).all())   # null page
+
+
+class TestBlockTableRoundTrip:
+    @settings(max_examples=15, deadline=None)
+    @given(seed=st.integers(min_value=0, max_value=99999),
+           block_k=st.integers(min_value=1, max_value=5),
+           n_blocks_req=st.integers(min_value=1, max_value=6))
+    def test_admit_gather_is_exact(self, seed, block_k, n_blocks_req):
+        """Admit a random cache into fragmented physical pages, gather
+        through the table: the original buffer comes back bit for bit in
+        the decode kernel's layout, and the table's null tail reads
+        zeros.  The reference's pool, fed the same cache through the same
+        allocations, gathers the same values."""
+        rng = np.random.default_rng(seed)
+        layout = KVCacheLayout(block_k=block_k)
+        width = 6
+        S_slot = width * block_k
+        shape = (2, 1, 2, S_slot, 3)                 # [L, B, KV, S, D]
+        template = {"k": torch.zeros(shape), "v": torch.zeros(shape),
+                    "length": torch.zeros((), dtype=torch.int32)}
+        axes = kvcache.seq_axis_tree(template)
+        nb = RESERVED_BLOCKS + 3 * width
+        pool = KVBlockPool.build(template, axes, layout, num_blocks=nb)
+        ref_axes = {"k": -2, "v": -2, "length": None}
+        ref_pool = ref_kv_pool.KVBlockPool.build(
+            {"k": jnp.zeros(shape), "v": jnp.zeros(shape),
+             "length": jnp.zeros((), jnp.int32)}, ref_axes,
+            ref_kv_pool.KVCacheLayout(block_k=block_k), num_blocks=nb)
+        for _ in range(int(rng.integers(0, 4))):   # fragment the free list
+            n = int(rng.integers(1, 4))
+            ids = pool.allocator.alloc(n)
+            assert ids == ref_pool.allocator.alloc(n)
+            if rng.random() < 0.5:
+                pool.allocator.free(ids)
+                ref_pool.allocator.free(ids)
+        arrays = {k: rng.standard_normal(shape).astype(np.float32)
+                  for k in ("k", "v")}
+        cache = {"k": torch.from_numpy(arrays["k"]),
+                 "v": torch.from_numpy(arrays["v"]), "length": None}
+        table = pool.admit(cache, n_blocks_req * block_k)
+        ref_table = ref_pool.admit({**{k: jnp.asarray(a) for k, a in arrays.items()},
+                                    "length": None}, n_blocks_req * block_k)
+        np.testing.assert_array_equal(table, ref_table)
+        got = pool.gather(pool.buffers, torch.as_tensor(table[None],
+                                                        dtype=torch.long))
+        want = ref_pool.gather(ref_pool.buffers, jnp.asarray(ref_table[None]))
+        valid = n_blocks_req * block_k
+        for leaf in ("k", "v"):
+            g = got[leaf]                             # [L, slots, KV, S, D]
+            assert tuple(g.shape) == (2, 1, 2, S_slot, 3)
+            assert torch.equal(g[:, 0, :, :valid], cache[leaf][:, 0, :, :valid])
+            assert bool((g[:, :, :, valid:] == 0).all())
+            # the reference's [slots, L, 1, KV, S, D]
+            np.testing.assert_array_equal(
+                g.numpy(), np.moveaxis(np.asarray(want[leaf])[:, :, 0], 0, 1))
+
+    def test_scatter_then_gather_reads_back_written_token(self):
+        layout = KVCacheLayout(block_k=3)
+        shape = (1, 1, 2, 9, 4)
+        template = {"k": torch.zeros(shape), "v": torch.zeros(shape),
+                    "length": torch.zeros((), dtype=torch.int32)}
+        axes = kvcache.seq_axis_tree(template)
+        pool = KVBlockPool.build(template, axes, layout, num_blocks=10)
+        table = pool.admit({"k": torch.zeros(shape), "v": torch.zeros(shape),
+                            "length": None}, 9)
+        tables = torch.as_tensor(table[None], dtype=torch.long)
+        rng = np.random.default_rng(0)
+        for pos in (0, 2, 3, 8):                     # block edges + interior
+            chunk = {"k": torch.from_numpy(rng.standard_normal((1, 1, 2, 4))
+                                           .astype(np.float32)),
+                     "v": torch.zeros((1, 1, 2, 4)), "length": None}
+            p = torch.tensor([pos], dtype=torch.int32)
+            pool.scatter_token(pool.buffers, chunk, tables, p, torch.tensor([True]))
+            got = pool.gather(pool.buffers, tables)
+            assert torch.equal(got["k"][:, :, :, pos], chunk["k"])
+            assert torch.equal(pool.chunks_at(got, p)["k"], chunk["k"])
+
+
+# ---------------------------------------------------------------------------
+# cache_seq_axes classification (drives what the pool owns)
+# ---------------------------------------------------------------------------
+
+
+def _leaves(tree, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, path + (k,))
+    else:
+        yield path, tree
+
+
+def test_cache_seq_axes_classify_like_the_reference(family):
+    """The port's cache (its mamba2 conv cache a dict of x, B and C tails,
+    the reference's one leaf) classified key by key as the reference's
+    ``seq_axis_tree`` classifies its own cache."""
+    fam, cfg, ref_cfg, _, port = family
+    model = get_model(cfg, attn_backend="dense-ref")
+    _, cache = model.prefill(port, {"tokens": torch.zeros((1, 3), dtype=torch.long)}, 8)
+    axes = model.cache_seq_axes(cache)
+    ref_axes = ref_get_model(ref_cfg).cache_seq_axes(
+        cache_specs(ref_cfg, ShapeConfig("smoke", 1, 8, "decode"), abstract=True))
+    assert set(axes) == set(ref_axes)
+    seen = []
+    for path, ax in _leaves(axes):
+        want = ref_axes
+        for k in path:
+            if not isinstance(want, dict):
+                break
+            want = want[k]
+        assert ax == want, path
+        seen.append((path, ax))
+    growing = sorted(p for p, a in seen if a == -2)
+    if fam == "dense":
+        assert growing == [("k",), ("v",)]
+    else:
+        assert not growing and (("conv", "x"), None) in seen
+    assert axes["length"] is None
+
+
+# ---------------------------------------------------------------------------
+# one cache length per batch row
+# ---------------------------------------------------------------------------
+
+
+DECODE_BACKENDS = {
+    "decode_mha": lambda q, k, v, n: decode_ops.decode_mha(q, k, v, n)[0],
+    "dense-ref": lambda q, k, v, n: DenseRefAttention().decode(q[:, None], k, v, n)[:, 0],
+    "chunked-lse": lambda q, k, v, n: ChunkedLseAttention(kv_chunk=6).decode(
+        q[:, None], k, v, n)[:, 0],
+    "torch-splitk": lambda q, k, v, n: TorchSplitKAttention(
+        block_k=8, device="cpu").decode(q[:, None], k, v, n)[:, 0],
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("backend", sorted(DECODE_BACKENDS))
+def test_decode_backends_take_one_length_per_row(backend, dtype):
+    """Lengths 0 (the mean of V over the capacity), 1, a block edge, the
+    capacity and one past it (clipped): with ``[B]`` lengths every row
+    equals its own call, alone at B = 1 and in the batch with its length as
+    a scalar, bit for bit; in fp32 the outputs are within 1e-5 of the
+    reference's Pallas kernel mapped over the rows with ``jax.vmap``."""
+    B, H, KV, S, D = 5, 4, 2, 24, 16
+    rng = np.random.default_rng(2)
+    arrays = [rng.standard_normal(s).astype(np.float32)
+              for s in ((B, H, D), (B, KV, S, D), (B, KV, S, D))]
+    q, k, v = (torch.from_numpy(a).to(dtype) for a in arrays)
+    lens = torch.tensor([0, 1, 8, S, S + 5], dtype=torch.int32)
+    call = DECODE_BACKENDS[backend]
+    out = call(q, k, v, lens)
+    for b in range(B):
+        alone = call(q[b:b + 1].contiguous(), k[b:b + 1].contiguous(),
+                     v[b:b + 1].contiguous(), lens[b:b + 1])
+        assert torch.equal(out[b], alone[0]), b
+        assert torch.equal(out[b], call(q, k, v, lens[b:b + 1])[b]), b
+    if dtype == torch.float32:
+        want = jax.vmap(lambda qq, kk, vv, n: ref_decode_ops.decode_mha(
+            qq[None], kk[None], vv[None], n, block_k=8, interpret=True)[0][0])(
+            *(jnp.asarray(a) for a in arrays), jnp.asarray(lens.numpy()))
+        np.testing.assert_allclose(out.numpy(), np.asarray(want), **KERNEL_TOL)
+
+
+def test_decode_step_with_per_row_lengths_matches_b1_steps(family):
+    """``transformer.decode_step`` (and mamba2's) over three rows at their
+    own lengths against each row's B = 1 step on its own cache: logits and
+    the written K and V within 1e-4, ``length`` advanced per row."""
+    fam, cfg, _, _, port = family
+    model = get_model(cfg, attn_backend=TorchSplitKAttention(block_k=BLOCK_K,
+                                                             device="cpu"))
+    rng = np.random.default_rng(5)
+    cap = 12
+    caches, toks = [], []
+    for n in (2, 5, 9):
+        prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, n)))
+        logits, c = model.prefill(port, {"tokens": prompt}, cap)
+        caches.append(c)
+        toks.append(logits[:, -1:].argmax(-1))
+    axes = model.cache_seq_axes(caches[0])
+
+    def stack(ax, *leaves):
+        return torch.stack(leaves) if leaves[0].dim() == 0 else torch.cat(leaves, 1)
+
+    from repro_torch.serving.kv_pool import tree_map
+
+    batch = tree_map(stack, axes, *caches)
+    assert batch["length"].tolist() == [2, 5, 9]
+    solo = [model.decode_step(port, t, tree_map(lambda ax, x: x.clone(), axes, c))
+            for t, c in zip(toks, caches)]
+    logits, new = model.decode_step(port, torch.cat(toks), batch)
+    assert new["length"].tolist() == [3, 6, 10]
+    for b, (want, want_cache) in enumerate(solo):
+        np.testing.assert_allclose(logits[b].numpy(), want[0].numpy(), **TOL)
+        for (path, leaf), (_, wleaf) in zip(_leaves(new), _leaves(want_cache)):
+            if path != ("length",):
+                np.testing.assert_allclose(leaf[:, b].numpy(), wleaf[:, 0].numpy(),
+                                           err_msg=str(path), **TOL)

@@ -257,8 +257,10 @@ def test_wrapper_checks_its_operands():
         ops.decode_mha(q[:, :3].contiguous(), k, v, 3)
     with pytest.raises(ValueError, match="contiguous"):
         ops.decode_mha(q, k.transpose(2, 3), v, 3)
+    with pytest.raises(TypeError, match="int32"):  # neither 1 nor B = 2
+        ops.decode_mha(q, k, v, torch.tensor([3, 4, 5], dtype=torch.int32))
     with pytest.raises(TypeError, match="int32"):
-        ops.decode_mha(q, k, v, torch.tensor([3, 4], dtype=torch.int32))
+        ops.decode_mha(q, k, v, torch.tensor([3, 4], dtype=torch.int64))
 
 
 def test_splitk_rejects_unpadded_capacity():

@@ -559,3 +559,155 @@ def test_mamba2_engine_on_the_card_generates_the_cpu_tokens(cuda):
     np.testing.assert_array_equal(got.tokens, want.tokens)
     np.testing.assert_allclose(got.prefill_logits, want.prefill_logits,
                                rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# continuous batching: one cache length per row, the graphed step
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("B,H,KV,S,D", [
+    (8, 16, 8, 640, 128),     # the serving path's shape
+    (5, 8, 2, 200, 64),       # G 4, a capacity no multiple of 64
+])
+def test_decode_kernel_takes_one_length_per_row(cuda, dtype, B, H, KV, S, D):
+    """Mixed per-row lengths (0, 1, around a tile, full, past the capacity)
+    against the plain version, and each row bit for bit the launch of its
+    own length as the batch's one length."""
+    q, k, v = _decode_operands(cuda, B, H, KV, S, D, dtype, seed=B + S)
+    base = [0, 1, 63, 64, 65, S - 1, S, S + 7]
+    lens = torch.tensor((base * 2)[:B], dtype=torch.int32, device=cuda)
+    n0 = decode_ops.LAUNCHES["decode_attention"]
+    out, lse = decode_ops.decode_mha(q, k, v, lens)
+    assert decode_ops.LAUNCHES["decode_attention"] == n0 + 1
+    want, want_lse = decode_ref.decode_attention_ref(q, k, v, lens)
+    torch.testing.assert_close(out.float(), want.float(), **DECODE_TOL[dtype])
+    torch.testing.assert_close(lse, want_lse, **DECODE_TOL[dtype])
+    for b in range(B):
+        one, one_lse = decode_ops.decode_mha(q, k, v, lens[b:b + 1])
+        assert torch.equal(out[b], one[b]) and torch.equal(lse[b], one_lse[b]), b
+
+
+def _cb_stream(cfg, seed, n=7):
+    from repro_torch.serving.scheduler import Request
+
+    rng = np.random.default_rng(seed)
+    return [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
+                                               int(rng.integers(2, 12))),
+                    max_new_tokens=int(rng.integers(1, 7)),
+                    arrival=int(rng.integers(0, 5))) for i in range(n)]
+
+
+def _cb_params(cuda, arch):
+    cfg = get_config(arch).reduced()
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    mod = mamba2 if cfg.family == "ssm" else transformer
+    return cfg, mod, mod.init(gen, cfg, dtype=torch.float32)
+
+
+def _kernel_events(fn, name: str) -> int:
+    """Launches of device kernels whose name holds ``name`` while ``fn``
+    runs, counted in ``torch.profiler``'s trace (a replayed CUDA graph's
+    kernels appear there one by one)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and name in e.key)
+
+
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "mamba2-370m"])
+def test_graph_replay_equals_the_eager_step_and_captures_once(cuda, arch):
+    """One stream churning through 3 slots, graphed and eager: the same
+    tokens and final logits bit for bit; the graph is captured once over
+    two streams, the decode kernel runs n_layers times a replayed step in
+    the profiler's trace (replays do not pass through the wrapper, whose
+    count stands still), and every page comes back."""
+    from repro_torch.serving.scheduler import RequestScheduler
+
+    cfg, _, params = _cb_params(cuda, arch)
+    eng = ServingEngine(cfg, params=params)
+    reqs = _cb_stream(cfg, 3)
+    layout = eng.cache_layout(24)
+    cap = layout.padded_len(24)
+    graphed = RequestScheduler(eng.model, params, 3, cap, layout=layout)
+    assert graphed.graph and graphed.captures == 1
+    eager = RequestScheduler(eng.model, params, 3, cap, layout=layout,
+                             graph=False)
+    n0 = decode_ops.LAUNCHES["decode_attention"]
+    out = []
+    seen = _kernel_events(lambda: out.extend(graphed.run(reqs)),
+                          "decode_attention_kernel")
+    got = {r.rid: r for r in out}
+    per_step = 0 if cfg.family == "ssm" else cfg.n_layers
+    assert seen == per_step * graphed.steps_run
+    assert decode_ops.LAUNCHES["decode_attention"] == n0
+    again = {r.rid: r for r in graphed.run(reqs)}
+    want = {r.rid: r for r in eager.run(reqs)}
+    assert graphed.captures == 1 and eager.captures == 0
+    assert graphed.pool.allocator.live_blocks == 0
+    for rid, w in want.items():
+        for g in (got[rid], again[rid]):
+            np.testing.assert_array_equal(g.tokens, w.tokens)
+            assert np.array_equal(g.final_logits, w.final_logits), rid
+
+
+def test_graph_keeps_its_scratch_when_stream_handles_recur(cuda):
+    """The graph owns the decode wrapper's scratch it was captured with:
+    after decodes at a larger B·KV·n_split on more streams than torch's
+    pool has handles (so the capture stream's handle recurs, and scratch
+    kept per handle grows and is freed), and the freed memory is
+    overwritten, a replayed stream still equals the eager one bit for
+    bit."""
+    from repro_torch.serving.scheduler import RequestScheduler
+
+    cfg, _, params = _cb_params(cuda, "internlm2-1.8b")
+    eng = ServingEngine(cfg, params=params)
+    reqs = _cb_stream(cfg, 7)
+    layout = eng.cache_layout(200)   # several tiles: the kernel splits
+    cap = layout.padded_len(200)
+    graphed = RequestScheduler(eng.model, params, 3, cap, layout=layout)
+    assert graphed._graph_scratch is not None
+    q, k, v = _decode_operands(cuda, 16, 16, 8, 4096, 128, torch.float32, 1)
+    for _ in range(80):
+        side = torch.cuda.Stream()
+        with torch.cuda.stream(side):
+            decode_ops.decode_mha(q, k, v, 4096)
+        side.synchronize()
+    decode_ops._scratch.clear()
+    torch.cuda.empty_cache()
+    junk = torch.full((1 << 26,), 7, dtype=torch.int32, device=cuda)
+    got = {r.rid: r for r in graphed.run(reqs)}
+    del junk
+    eager = RequestScheduler(eng.model, params, 3, cap, layout=layout,
+                             graph=False)
+    for w in eager.run(reqs):
+        np.testing.assert_array_equal(got[w.rid].tokens, w.tokens)
+        assert np.array_equal(got[w.rid].final_logits, w.final_logits), w.rid
+
+
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "mamba2-370m"])
+def test_engine_stream_on_the_card_gives_the_cpu_tokens(cuda, arch):
+    """``generate_stream`` on the card (graphed, through the kernel) and on
+    the CPU (eager, through its plain version), fp32: the same tokens,
+    final logits within 1e-4."""
+    cfg, mod, params = _cb_params(cuda, arch)
+    on_cpu = (mod.Mamba2 if cfg.family == "ssm" else mod.Transformer)(
+        cfg, dtype=torch.float32, device="cpu")
+    for dst, src in zip(on_cpu.parameters(), params.parameters()):
+        dst.copy_(src.cpu())
+    reqs = _cb_stream(cfg, 5)
+    got = {r.rid: r for r in ServingEngine(cfg, params=params).generate_stream(
+        reqs, num_slots=3)}
+    want = ServingEngine(cfg, params=on_cpu, device="cpu").generate_stream(
+        reqs, num_slots=3)
+    for w in want:
+        np.testing.assert_array_equal(got[w.rid].tokens, w.tokens)
+        np.testing.assert_allclose(got[w.rid].final_logits, w.final_logits,
+                                   rtol=1e-4, atol=1e-4)

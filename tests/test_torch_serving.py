@@ -262,8 +262,8 @@ def test_registry_and_engine_options():
     eng = ServingEngine(cfg, device="cpu")
     assert eng.attn_backend.name == "torch-splitk"
     assert eng.params.embed.dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="item 6"):
-        eng.generate_stream([])
+    with pytest.raises(NotImplementedError, match="item 9"):
+        eng.generate_stream([], mesh=object())
     with pytest.raises(NotImplementedError, match="item 7"):
         ServingEngine(cfg, device="cpu", engine="fabric")
     moe = dataclasses.replace(cfg, family="moe")
