@@ -57,7 +57,9 @@ Run from the root of a checkout.  Phases, each printed as it ends:
    ``torch.profiler``'s trace of the whole graphed stream (a replay does
    not pass through the wrapper, which counts the warm-up's and the
    capture's launches; the eager stream's it counts, 24 x steps_run),
-   one capture over three streams, the same stream eager bit for bit equal,
+   one capture over all its streams (a trace short of the count, as the
+   profiler has once lost 9 of its events, is taken again, up to three
+   times), the same stream eager bit for bit equal,
    ms a step (between CUDA events) and tokens/s graphed and eager, the
    device's busy share from ``torch.profiler`` over 4 steps, the gather's
    device time, and slot-steps against padded static batching; then 4 of the requests with
@@ -95,12 +97,44 @@ Run from the root of a checkout.  Phases, each printed as it ends:
    prompt 256, 4 new tokens; logits within 1e-4); and its shorter
    continuous-batching stream (8 requests, prompts 64-256, budgets 4-16, 4
    slots), as in 5b;
-8. one JSON line with each kernel's time, launches on its path, bound,
+8. the LM pipeline over the serverless fabric (``run_lm_pipeline``) at
+   internlm2-1.8b's full width (bf16 params drawn on the card from seed 0,
+   ``torch-splitk``): P 4 stages of 6 layers, batch 8, prompts of 128 and
+   16 new tokens from ``np.random.default_rng(0)``, on the queue and the
+   object channel, each with the overlap and the phased clock: tokens and
+   logits bit for bit a ``ServingEngine(engine="device")`` run on the same
+   params and prompts, every billed count equal between the two clocks,
+   24 x 16 decode-kernel launches a run (counted by the wrapper) and each
+   stage's cache 6 layers deep; each run's host wall, split into stage
+   compute (between CUDA events around each stage's call) and host time
+   (packing, zlib, drains, the simulator), makespan, cost and message
+   counts;
+9. deepseek-moe-16b at full width (28 layers, d_model 2048, 64 routed
+   experts of 1408 and 2 shared, top-6; bf16 params drawn on the card from
+   seed 0; fp32 KV cache): ``ServingEngine.generate`` for 8 prompts of 512
+   with 32 new tokens, 28 x 32 = 896 decode-kernel launches (fp32, G 1),
+   prefill and decode times, tokens/s, peak memory and a profile of 4
+   steps; the decode kernel at its shape (B 8, H 16, KV 16, D 128, S 640)
+   with a bf16 q that the backend widens, against its plain version at
+   cache lengths 0, 1, 513 and 544 (1e-5; the bf16 output the fp32
+   kernel's rounded once, bit for bit), timed beside its bound and SDPA;
+   teacher-forced on the 32 tokens against the kernel's plain version as a
+   backend (the share of logits outside 3e-2, >= 90% of greedy next tokens
+   equal, the share of (token, layer) pairs whose top-6 experts agree);
+   the pipeline at P 4 on the queue (batch 4, prompts of 128, 8 new), bit
+   for bit the device engine's; a stream of 6 requests through 4 slots,
+   graphed = eager bit for bit and each request bit for bit itself alone;
+   and a depth cut to 4 layers (1 dense, 3 moe) in fp32 at full width,
+   whose tokens on the card are the CPU's (logits within 1e-4);
+10. one JSON line with each kernel's time, launches on its path, bound,
    plain-version time and one library call's time (the BSR kernels' at
    layer 2, and at each timed layer under ``by_layer``; the decode
    kernel's launches on the graphed stream, counted in the profiler's
    trace, under ``stream_launches`` and the stream's numbers under
-   ``stream``).
+   ``stream``; its launches on phase 8's pipeline run under
+   ``pipeline_launches`` and in phase 9's ``generate`` under
+   ``moe_generate_launches``, its times at deepseek's shape under
+   ``moe_decode_shape``).
 
 Times are medians of single calls between two CUDA events; below ~0.1 ms
 that is mostly the wrapper's host time, so the decode kernel at the serving
@@ -199,8 +233,20 @@ SSM_CPU_TOL = dict(rtol=1e-4, atol=1e-4)
 CB_REQUESTS, CB_SLOTS, CB_MAX_LEN = 16, 8, PROMPT + 64
 CB_PROMPTS, CB_BUDGETS, CB_ARRIVALS = (64, 512), (8, 64), 24
 CB_SOLO, CB_PROFILE = 4, (16, 4)
+TRACE_ATTEMPTS = 3     # traces of the graphed stream, until one is whole
 CB_LENS = (0, 1, 63, 64, 65, 544, 640, 513)
 CB_SSM = (8, 4, (64, 256), (4, 16))
+# the LM pipeline at internlm2-1.8b's full width: stages, batch, prompt
+# length and new tokens (phase 8)
+PIPE_P, PIPE_BATCH, PIPE_PROMPT, PIPE_NEW = 4, 8, 128, 16
+# deepseek-moe-16b at full width (phase 9): the decode kernel's cache
+# lengths at its shape; the fp32 depth cut (layers; batch, prompt, new
+# tokens) held to the CPU; the pipeline's batch, prompt and new tokens; the
+# stream's requests, slots, prompt lengths and budgets
+MOE_ARCH, MOE_LENS = "deepseek-moe-16b", (0, 1, 513, 544)
+MOE_CUT, MOE_CPU = 4, (2, 64, 4)
+MOE_PIPE = (4, 128, 8)
+MOE_STREAM = (6, 4, (32, 128), (4, 16))
 # builds of a kernel source with one piece of text replaced, each built
 # beside the others at the start: name -> (source, old, new).  The BSR
 # sweeps time a one-stage ring and a walk without the non-finite test; the
@@ -1408,8 +1454,23 @@ def cb_phase(dev, peaks, card):
     want = only(built, decode_attention=cfg.n_layers * (WARMUP_STEPS + 1))
     check(built == want, f"graphed stream's wrapper launches {built}, want {want}")
     steps = sched.steps_run
-    res_t, traced, t_read = traced_launches(sched, reqs,
-                                            "decode_attention_kernel")
+    # The profiler can lose a few of the ~243k device events of a traced
+    # stream (once, 9 short, in 9 traces of it): a trace short of the count
+    # is taken again, up to TRACE_ATTEMPTS times; one must hold exactly
+    # 24 x steps, and none may hold more.
+    streams = 1
+    for attempt in range(TRACE_ATTEMPTS):
+        res_t, traced, t_read = traced_launches(sched, reqs,
+                                                "decode_attention_kernel")
+        streams += 1
+        check(traced <= cfg.n_layers * steps,
+              f"{traced} decode kernels in the trace of the graphed stream, "
+              f"more than {cfg.n_layers} x {steps}")
+        if traced == cfg.n_layers * steps:
+            break
+        log(f"[stream] trace {attempt + 1} held {traced} decode kernels, "
+            f"{cfg.n_layers * steps - traced} short of {cfg.n_layers} x "
+            f"{steps}: tracing the stream again")
     check(traced == cfg.n_layers * steps,
           f"{traced} decode kernels in the trace of the graphed stream, want "
           f"{cfg.n_layers} x {steps}")
@@ -1434,9 +1495,10 @@ def cb_phase(dev, peaks, card):
     check(eager.steps_run == steps and eager.captures == 0, "eager steps differ")
     _, _, _, rows_g = drive(sched, reqs, CB_PROFILE)
     _, _, _, rows_e = drive(eager, reqs, CB_PROFILE)
-    check(sched.captures == 1, f"{sched.captures} captures over three streams")
+    streams += 1
+    check(sched.captures == 1, f"{sched.captures} captures over {streams} streams")
     tokens = sum(r.max_new_tokens for r in reqs)
-    check(sched.tokens_emitted == 3 * tokens, "tokens emitted != the budgets")
+    check(sched.tokens_emitted == streams * tokens, "tokens emitted != the budgets")
     static = static_slot_steps(reqs, CB_SLOTS)
     med_g, med_e = statistics.median(ms_g), statistics.median(ms_e)
 
@@ -1460,7 +1522,7 @@ def cb_phase(dev, peaks, card):
         f"launches: {built['decode_attention']} building the graph "
         f"({WARMUP_STEPS} warm-up steps and the capture), "
         f"{launches['decode_attention']} on the eager stream; captures "
-        f"{sched.captures} (over three streams); graph and eager tokens and "
+        f"{sched.captures} (over {streams} streams); graph and eager tokens and "
         f"final logits bit for bit equal")
     log(f"[stream] ms a step (median between CUDA events): graph {med_g:.3f}, "
         f"eager {med_e:.3f} ({med_e / med_g:.2f}x); stream wall (prefills "
@@ -2075,6 +2137,489 @@ def mamba2_phase(dev, peaks, card):
 
 
 # ---------------------------------------------------------------------------
+# 8. the LM pipeline over the serverless fabric
+# ---------------------------------------------------------------------------
+
+
+def timed_stages(executors, spans: list) -> None:
+    """Wrap each stage's compute so that every call appends (start event,
+    end event) around it to ``spans``: the stage compute's time on the
+    card, which the pipeline's next step (the activation's copy to the
+    host, or the token's) waits for."""
+    for ex in executors:
+        for attr in ("prefill_fn", "decode_fn"):
+            def timed(*args, _fn=getattr(ex, attr)):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                out = _fn(*args)
+                e1.record()
+                spans.append((e0, e1))
+                return out
+            setattr(ex, attr, timed)
+
+
+def pipeline_run(cfg, prompts, params, executors, spans, new, **kw):
+    """One ``run_lm_pipeline`` with the launch counts from 0.  Returns (the
+    result, the counts, host wall s, stage compute s)."""
+    from repro_torch.faas.lm_pipeline import run_lm_pipeline
+
+    spans.clear()
+    reset_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = run_lm_pipeline(cfg, prompts, params, max_new_tokens=new,
+                          executors=executors, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = read_counts()
+    stage = sum(e0.elapsed_time(e1) for e0, e1 in spans) / 1e3
+    return res, counts, wall, stage
+
+
+def pipeline_line(tag, res, wall, stage, card) -> str:
+    m, st = res.metrics, res.stats
+    return (f"[pipeline] {tag}: {wall:.3f} s host wall = {stage:.3f} s stage "
+            f"compute (between CUDA events) + {wall - stage:.3f} s host "
+            f"(packing, zlib, drains, the simulator); makespan "
+            f"{res.makespan:.4f} s (phased {m['phased_makespan_s']:.4f}, "
+            f"overlap {m['overlap_makespan_s']:.4f}); cost "
+            f"{res.cost.total:.6e} USD; hops {m['hops']:.0f}, messages "
+            f"{m.get('messages', 0):.0f}, publish units {st.publish_units}, "
+            f"SQS calls {st.sqs_api_calls}, S3 puts {st.s3_puts} gets "
+            f"{st.s3_gets} lists {st.s3_lists}; raw bytes "
+            f"{res.raw_exchange_bytes}, wire bytes {res.wire_exchange_bytes}; "
+            f"flops {m['flops_total']:.6e}, memory {st.memory_mb} MB, on {card}")
+
+
+def same_generation(res, want, what: str) -> None:
+    check(np.array_equal(res.tokens, want.tokens),
+          f"{what}: tokens {res.tokens[0, :8]} vs {want.tokens[0, :8]}")
+    check(np.array_equal(res.logits, want.prefill_logits),
+          f"{what}: logits not bit for bit (max |diff| "
+          f"{np.abs(res.logits - want.prefill_logits).max():.3e})")
+
+
+def pipeline_phase(dev, card):
+    """``run_lm_pipeline`` at internlm2-1.8b's full width (bf16 params from
+    seed 0, ``torch-splitk``), P = 4 stages, on the queue and the object
+    channel, each with the overlap and the phased clock: tokens and logits
+    bit for bit the device engine's, the decode kernel launched once a
+    layer a step, the KV resident in the stages.  Returns (the decode
+    kernel's launches in one run, the numbers)."""
+    from repro_torch.configs import get_config
+    from repro_torch.faas.lm_pipeline import build_stage_executors
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = get_config(ARCH)
+    B, S, new = PIPE_BATCH, PIPE_PROMPT, PIPE_NEW
+    engine = ServingEngine(cfg, seed=SEED)
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)
+    want = engine.generate(prompts, max_new_tokens=new)
+    executors = build_stage_executors(cfg, engine.params, PIPE_P,
+                                      attn_backend=engine.attn_backend)
+    check([ex.spec.n_layers for ex in executors] == [cfg.n_layers // PIPE_P] * PIPE_P,
+          f"stages {[ex.spec for ex in executors]}")
+    spans: list = []
+    timed_stages(executors, spans)
+    log(f"[pipeline] {cfg.name} at full width, {engine.attn_backend.name}, P "
+        f"{PIPE_P} stages of {[ex.spec.n_layers for ex in executors]} layers "
+        f"(weights {[round(ex.weight_bytes / 1e9, 3) for ex in executors]} GB, "
+        f"slices of the engine's tensors); batch {B}, prompts of {S}, {new} "
+        f"new tokens from np.random.default_rng(0)")
+    summary = {}
+    for ch in ("queue", "object"):
+        runs = {}
+        for overlap in (True, False):
+            res, counts, wall, stage = pipeline_run(
+                cfg, prompts, engine.params, executors, spans, new, P=PIPE_P,
+                channel=ch, overlap=overlap)
+            want_counts = only(counts, decode_attention=cfg.n_layers * new)
+            check(counts == want_counts, f"{ch}: launches {counts}, want "
+                                         f"{want_counts}")
+            same_generation(res, want, f"pipeline {ch} vs the device engine")
+            for ex in executors:
+                check(ex.cache["k"].shape[0] == ex.spec.n_layers,
+                      f"stage {ex.spec.index} holds {ex.cache['k'].shape[0]} "
+                      f"layers of KV")
+            clock = "overlap" if overlap else "phased"
+            log(pipeline_line(f"{ch}, {clock} clock", res, wall, stage, card))
+            runs[overlap] = res
+            summary[f"{ch}_{clock}"] = dict(
+                wall_s=wall, stage_compute_s=stage, host_s=wall - stage,
+                makespan_s=res.makespan, cost_usd=res.cost.total,
+                messages=res.metrics.get("messages", 0.0),
+                raw_bytes=res.raw_exchange_bytes)
+        a, b = runs[True], runs[False]
+        check(np.array_equal(a.tokens, b.tokens)
+              and np.array_equal(a.logits, b.logits), f"{ch}: overlap != phased")
+        for f in ("P", "memory_mb", "publish_units", "bytes_sns_to_sqs",
+                  "sqs_api_calls", "s3_puts", "s3_gets", "s3_lists"):
+            check(getattr(a.stats, f) == getattr(b.stats, f), f"{ch}: {f}")
+        check(a.raw_exchange_bytes == b.raw_exchange_bytes
+              and a.wire_exchange_bytes == b.wire_exchange_bytes
+              and a.cost.communication == b.cost.communication,
+              f"{ch}: billed bytes differ between the clocks")
+        check(a.makespan <= b.makespan + 1e-12, f"{ch}: overlap later")
+    log(f"[pipeline] every run: tokens and logits bit for bit the device "
+        f"engine's; {cfg.n_layers} x {new} = {cfg.n_layers * new} decode "
+        f"kernels a run; every billed count equal between the overlap and "
+        f"phased clocks; each stage's cache holds its own "
+        f"{cfg.n_layers // PIPE_P} layers")
+    del executors, engine
+    torch.cuda.empty_cache()
+    return cfg.n_layers * new, summary
+
+
+# ---------------------------------------------------------------------------
+# 9. deepseek-moe-16b at full width
+# ---------------------------------------------------------------------------
+
+
+def moe_kernel(dev, peaks, card, cfg, S):
+    """The decode kernel at deepseek's decode shape (fp32 cache, G 1, D
+    128) with a bf16 q that the backend widens: against its plain version
+    on the widened q at 1e-5, the backend's bf16 output that of the fp32
+    kernel rounded once; then timed.  Returns (timing, max error)."""
+    from repro_torch.core.backends import TorchSplitKAttention
+    from repro_torch.kernels.decode_attention import ops, ref
+
+    B, H, KV, D = SERVE_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    q = torch.randn((B, H, D), generator=gen, device=dev).to(torch.bfloat16)
+    k, v = [torch.randn((B, KV, S, D), generator=gen, device=dev)
+            for _ in range(2)]
+    qf = q.float()
+    be = TorchSplitKAttention(device=dev)
+    worst = 0.0
+    for L in MOE_LENS:
+        lt = torch.tensor([L], dtype=torch.int32, device=dev)
+        out, lse = ops.decode_mha(qf, k, v, lt)
+        want, want_lse = ref.decode_attention_ref(qf, k, v, lt)
+        torch.testing.assert_close(out, want, **TOL)
+        torch.testing.assert_close(lse, want_lse, **TOL)
+        got = be.decode(q[:, None], k, v, lt)[:, 0]
+        check(got.dtype == torch.bfloat16
+              and torch.equal(got, out.to(torch.bfloat16)),
+              f"cache_len {L}: the widened bf16 call is not the fp32 kernel "
+              f"rounded once")
+        err = (out - want).abs().max().item()
+        worst = max(worst, err)
+        log(f"  moe decode B{B} H{H} KV{KV} S{S} D{D}, bf16 q widened over "
+            f"the fp32 cache, cache_len {L}: max_abs_err out {err:.3e}, lse "
+            f"{(lse - want_lse).abs().max().item():.3e} (tolerance 1e-5); the "
+            f"bf16 output equals the fp32 kernel's rounded, bit for bit")
+    L = PROMPT + NEW
+    lt = torch.tensor([L], dtype=torch.int32, device=dev)
+    kernel = lambda: ops.decode_mha(qf, k, v, lt)  # noqa: E731
+    library = sdpa_call(qf, k, v, L)
+    lib_err = (library() - kernel()[0]).abs().max().item()
+    ms = time_ms(kernel, reps=20)
+    plain_ms = time_ms(lambda: ref.decode_attention_ref(qf, k, v, lt), reps=20)
+    lib_ms = time_ms(library, reps=20)
+    extra = back_to_back("decode_attention", f"moe shape fp32 cache_len {L}",
+                         kernel, library)
+    b_ms, b_by, nbytes, flops = decode_bound(B, H, KV, L, D, torch.float32, peaks)
+    log(f"[time] decode_attention moe shape B{B} H{H} KV{KV} S{S} D{D} fp32 "
+        f"cache_len {L}: kernel {ms:.4f} ms, {extra['graph_ms']:.4f} from a "
+        f"CUDA graph, plain {plain_ms:.4f} ms, library (SDPA) {lib_ms:.4f} ms, "
+        f"{extra['library_graph_ms']:.4f} from a CUDA graph (max |library - "
+        f"kernel| {lib_err:.3e}), bound {b_ms:.4f} ms by {b_by} "
+        f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP), on {card}")
+    return dict(shape=[B, H, KV, S, D], dtype="float32", cache_len=L, ms=ms,
+                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                bound_by=b_by, **extra), worst
+
+
+def moe_teacher_forced(engine, prompts, res, dev, card) -> dict:
+    """Teacher-forced on ``res``'s tokens, bf16, the kernel's engine against
+    the same params through the kernel's plain version, twice.  Free: each
+    run routes on its own logits; reported are the share of logits outside
+    3e-2, of equal greedy next tokens and of (token, layer) pairs whose
+    top-k experts agree.  Pinned: the plain run takes the kernel run's
+    expert ids at every layer and step (its gate weights still from its
+    own router logits), so that only the attention's numerics differ; its
+    greedy next tokens must agree on >= 90%, as the dense model's do (a
+    routed model flips experts on one rounding of an attention output, so
+    the free run tells no backend from another: PERF.md §6)."""
+    from repro_torch.models import moe
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = engine.cfg
+    plain = ServingEngine(cfg, params=engine.params,
+                          attn_backend=PlainSplitKOnCard())
+    route_topk = moe.route_topk
+    routes: list = []
+    pinned: list = []
+
+    def recorded(logits, k):
+        w, idx = route_topk(logits, k)
+        routes.append(idx)
+        return w, idx
+
+    def replayed(logits, k):
+        idx = pinned.pop(0)
+        w = torch.softmax(torch.gather(logits, -1, idx).float(), dim=-1)
+        return w, idx
+
+    stats = {run: dict(outside=0.0, rel=0.0, agree=0) for run in ("free", "pinned")}
+    replay = same_experts = pairs = 0
+    try:
+        batch = {"tokens": torch.as_tensor(prompts, dtype=torch.int64,
+                                           device=dev)}
+        max_len = prompts.shape[1] + NEW
+        moe.route_topk = recorded
+        lk, ck = engine.model.prefill(engine.params, batch, max_len)
+        caches = {}
+        for run in stats:
+            lp, caches[run] = plain.model.prefill(plain.params, batch, max_len)
+            check(torch.equal(lk, lp),
+                  "prefill logits differ under the plain backend")
+        toks = torch.as_tensor(res.tokens, dtype=torch.int64, device=dev)
+        for t in range(NEW):
+            tok = toks[:, t:t + 1]
+            moe.route_topk = recorded
+            routes.clear()
+            lk, ck = engine.model.decode_step(engine.params, tok, ck)
+            rk = list(routes)
+            routes.clear()
+            lp = {}
+            lp["free"], caches["free"] = plain.model.decode_step(
+                plain.params, tok, caches["free"])
+            for a, b in zip(rk, routes):
+                same = a.sort(dim=-1).values == b.sort(dim=-1).values
+                same_experts += int(same.all(dim=-1).sum())
+                pairs += a.shape[0]
+            moe.route_topk = replayed
+            pinned[:] = rk
+            lp["pinned"], caches["pinned"] = plain.model.decode_step(
+                plain.params, tok, caches["pinned"])
+            check(not pinned, "the pinned run used fewer routings than recorded")
+            for run, st in stats.items():
+                d = (lk - lp[run]).abs()
+                bound = LOGITS_TOL["atol"] + LOGITS_TOL["rtol"] * lp[run].abs()
+                st["outside"] = max(st["outside"], (d > bound).float().mean().item())
+                st["rel"] = max(st["rel"], (d.norm() / lp[run].norm()).item())
+                if t + 1 < NEW:
+                    st["agree"] += int((lp[run][:, 0].argmax(-1)
+                                        == toks[:, t + 1]).sum())
+            if t + 1 < NEW:
+                replay += int((lk[:, 0].argmax(-1) == toks[:, t + 1]).sum())
+    finally:
+        moe.route_topk = route_topk
+    n_next = prompts.shape[0] * (NEW - 1)
+    free, pin = stats["free"], stats["pinned"]
+    log(f"[moe] bf16 teacher-forced, {NEW} steps, kernel vs its plain version "
+        f"routing freely: worst step {free['outside']:.4%} of the logits outside "
+        f"rtol=atol=3e-2 (|diff|_2/|logits|_2 {free['rel']:.3e}); greedy next "
+        f"tokens equal {free['agree']} of {n_next} ({free['agree'] / n_next:.2%}); "
+        f"(token, layer) pairs with the same top-{cfg.experts_per_token} experts "
+        f"{same_experts} of {pairs} ({same_experts / max(1, pairs):.4%}); on {card}")
+    log(f"[moe] bf16 teacher-forced, the plain run pinned to the kernel run's "
+        f"experts: worst step {pin['outside']:.4%} of the logits outside "
+        f"rtol=atol=3e-2 (|diff|_2/|logits|_2 {pin['rel']:.3e}); greedy next "
+        f"tokens equal {pin['agree']} of {n_next} ({pin['agree'] / n_next:.2%}, "
+        f">= {AGREE_MIN:.0%} required); the kernel's replay picked {replay} of "
+        f"{n_next} of generate's tokens again, on {card}")
+    check(replay == n_next, f"the kernel's teacher-forced replay picked "
+                            f"{replay} of {n_next} tokens again")
+    check(np.array_equal(lk[:, 0].cpu().numpy(), res.prefill_logits),
+          "replayed last-step logits differ from generate's")
+    check(pin["agree"] >= AGREE_MIN * n_next,
+          f"pinned to the kernel run's experts, the plain version's greedy "
+          f"next tokens agree on only {pin['agree']} of {n_next}")
+    return dict(free_agree=free["agree"] / n_next, free_outside=free["outside"],
+                experts_agree=same_experts / max(1, pairs),
+                pinned_agree=pin["agree"] / n_next, pinned_outside=pin["outside"])
+
+
+def moe_stream(engine, dev, card) -> dict:
+    """A short stream (``MOE_STREAM``) through the scheduler's graphed step,
+    each slot routed as its own group: graph = eager bit for bit, each
+    request bit for bit itself served alone."""
+    import dataclasses
+
+    from repro_torch.serving.scheduler import RequestScheduler
+
+    n, slots, prompts, budgets = MOE_STREAM
+    cfg = engine.cfg
+    reqs = cb_requests(n, prompts, budgets, 4, cfg.vocab_size, SEED)
+    layout = engine.cache_layout(prompts[1] + budgets[1])
+    cap = layout.padded_len(prompts[1] + budgets[1])
+
+    def scheduler(graph):
+        return RequestScheduler(engine.model, engine.params, slots, cap,
+                                layout=layout, device=dev, graph=graph)
+
+    t = time.perf_counter()
+    sched = scheduler(True)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t
+    res, wall, ms, _ = drive(sched, reqs)
+    steps, tokens = sched.steps_run, sched.tokens_emitted
+    eager = scheduler(False)
+    reset_counts()
+    res_e, wall_e, ms_e, _ = drive(eager, reqs)
+    counts = read_counts()
+    want = only(counts, decode_attention=cfg.n_layers * eager.steps_run)
+    check(counts == want, f"moe eager stream launches {counts}, want {want}")
+    same_results(res, res_e, "moe graph vs eager")
+    for r in reqs:
+        solo = {x.rid: x for x in sched.run([dataclasses.replace(r, arrival=0)])}
+        same_results({r.rid: res[r.rid]}, solo, "moe stream vs solo")
+    check(sched.captures == 1, f"{sched.captures} captures")
+    log(f"[stream] {cfg.name}: {n} requests (prompts "
+        f"{[len(r.prompt) for r in reqs]}, budgets "
+        f"{[r.max_new_tokens for r in reqs]}) through {slots} slots of "
+        f"capacity {cap}, one token group a slot: {steps} steps, {tokens} "
+        f"tokens; scheduler built and captured in {t_build:.2f} s; graph = "
+        f"eager bit for bit ({counts['decode_attention']} = {cfg.n_layers} x "
+        f"{eager.steps_run} decode kernels eager); each request bit for bit "
+        f"itself served alone; ms a step graph {statistics.median(ms):.3f}, "
+        f"eager {statistics.median(ms_e):.3f}; stream wall graph {wall:.3f} s "
+        f"({tokens / wall:.1f} tokens/s), eager {wall_e:.3f} s "
+        f"({tokens / wall_e:.1f} tokens/s); captures {sched.captures}, on {card}")
+    return dict(steps=steps, tokens=tokens,
+                step_ms_graph=statistics.median(ms),
+                step_ms_eager=statistics.median(ms_e))
+
+
+def moe_phase(dev, peaks, card):
+    """deepseek-moe-16b at full width (28 layers, 64 routed experts of 1408
+    and 2 shared, top-6; bf16 params drawn on the card from seed 0; fp32 KV
+    cache).  Returns (the decode kernel's launches in ``generate``, the
+    numbers, the kernel's max error at deepseek's shape)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.faas.lm_pipeline import run_lm_pipeline
+    from repro_torch.models import moe
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = get_config(MOE_ARCH)
+    t = time.time()
+    engine = ServingEngine(cfg, seed=SEED)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in engine.params.parameters())
+    p_bytes = sum(p.numel() * p.element_size() for p in engine.params.parameters())
+    log(f"[moe] {cfg.name}: {cfg.n_layers} layers ({cfg.first_dense_layers} "
+        f"dense, d_ff {cfg.d_ff}), d_model {cfg.d_model}, {cfg.n_heads} heads / "
+        f"{cfg.n_kv_heads} KV heads, d_head {cfg.d_head}, {cfg.n_experts} routed "
+        f"experts of {cfg.moe_d_ff} and {cfg.n_shared_experts} shared, top-"
+        f"{cfg.experts_per_token}, capacity factor {cfg.moe_capacity_factor}; "
+        f"{n_params / 1e9:.3f} B params ({p_bytes / 1e9:.2f} GB, bf16, router "
+        f"fp32) drawn on the card from seed {SEED} in {time.time() - t:.1f} s; "
+        f"KV cache {moe.DECODE_CACHE_DTYPE}; backend {engine.attn_backend.name}")
+    rng = np.random.default_rng(1)
+    prompts = rng.integers(0, cfg.vocab_size,
+                           size=(SERVE_BATCH, PROMPT)).astype(np.int32)
+    engine.generate(prompts[:, :16], max_new_tokens=2)  # warm-up
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = engine.generate(prompts, max_new_tokens=NEW)
+    t_first = time.perf_counter() - t
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = only(launches, decode_attention=cfg.n_layers * NEW)
+    check(launches == want, f"moe serving launches {launches}, want {want}")
+    V = cfg.padded_vocab()
+    check(res.tokens.shape == (SERVE_BATCH, NEW)
+          and bool(((res.tokens >= 0) & (res.tokens < V)).all()),
+          f"tokens {res.tokens.shape} out of range")
+    check(bool(np.isfinite(res.prefill_logits).all()), "logits not finite")
+    log(f"[moe] generate(B {SERVE_BATCH}, prompt {PROMPT}, {NEW} new): "
+        f"{t_first:.3f} s host wall (first timed run); decode kernel launches "
+        f"{launches['decode_attention']} = {cfg.n_layers} x {NEW} (fp32, G 1); "
+        f"peak device memory {peak / 1e9:.2f} GB; first tokens "
+        f"{res.tokens[0, :8].tolist()}")
+
+    def wall(n_new, reps=2):
+        ts = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engine.generate(prompts, max_new_tokens=n_new)
+            ts.append(time.perf_counter() - t0)
+        return statistics.median(ts)
+
+    t_prefill, t_gen = wall(0), wall(NEW)
+    step = (t_gen - t_prefill) / NEW
+    log(f"[moe] prefill {t_prefill * 1e3:.2f} ms (median of 2 generate(..., "
+        f"0)); generate {t_gen * 1e3:.2f} ms (median of 2); decode "
+        f"{step * 1e3:.3f} ms/step, {SERVE_BATCH / step:.1f} tokens/s; end to "
+        f"end {SERVE_BATCH * NEW / t_gen:.1f} tokens/s, on {card}")
+    profile_decode(engine, prompts, step * 1e3)
+    S = engine.cache_layout(PROMPT + NEW).padded_len(PROMPT + NEW)
+    timing, err = moe_kernel(dev, peaks, card, cfg, S)
+    forced = moe_teacher_forced(engine, prompts, res, dev, card)
+
+    # the pipeline at P 4 on the queue channel
+    B, Sp, new = MOE_PIPE
+    short = prompts[:B, :Sp]
+    ref = engine.generate(short, max_new_tokens=new)
+    reset_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    pipe = run_lm_pipeline(cfg, short, engine.params, max_new_tokens=new,
+                           P=PIPE_P, channel="queue",
+                           attn_backend=engine.attn_backend)
+    t_pipe = time.perf_counter() - t
+    counts = read_counts()
+    check(counts == only(counts, decode_attention=cfg.n_layers * new),
+          f"moe pipeline launches {counts}")
+    same_generation(pipe, ref, "moe pipeline vs the device engine")
+    log(f"[moe] pipeline P {PIPE_P} ({[s.n_layers for s in pipe.plan.stages]} "
+        f"layers a stage), queue, batch {B}, prompts of {Sp}, {new} new: tokens "
+        f"and logits bit for bit the device engine's; {counts['decode_attention']}"
+        f" = {cfg.n_layers} x {new} decode kernels; {t_pipe:.3f} s host wall, "
+        f"makespan {pipe.makespan:.4f} s, cost {pipe.cost.total:.6e} USD, "
+        f"messages {pipe.metrics.get('messages', 0):.0f}, on {card}")
+    stream = moe_stream(engine, dev, card)
+
+    # fp32, cut to MOE_CUT layers at full width: the card against the CPU
+    cut = dataclasses.replace(cfg, n_layers=MOE_CUT)
+    p32 = moe.Moe(cut, dtype=torch.float32, device=dev)
+    for name, dst in p32.named_parameters():
+        dst.copy_(engine.params.get_parameter(name))
+    del engine
+    torch.cuda.empty_cache()
+    cpu = moe.Moe(cut, dtype=torch.float32, device="cpu")
+    for dst, src in zip(cpu.parameters(), p32.parameters()):
+        dst.copy_(src.cpu())
+    cut_bytes = sum(p.numel() * 4 for p in p32.parameters())
+    Bc, Sc, newc = MOE_CPU
+    short = prompts[:Bc, :Sc]
+    t = time.time()
+    a = ServingEngine(cut, params=p32).generate(short, max_new_tokens=newc)
+    t_card = time.time() - t
+    t = time.time()
+    b = ServingEngine(cut, params=cpu, device="cpu").generate(
+        short, max_new_tokens=newc)
+    t_cpu = time.time() - t
+    check(np.array_equal(a.tokens, b.tokens),
+          f"fp32 tokens differ, card {a.tokens} vs cpu {b.tokens}")
+    err32 = float(np.abs(a.prefill_logits - b.prefill_logits).max())
+    np.testing.assert_allclose(a.prefill_logits, b.prefill_logits, **E2E_TOL)
+    log(f"[moe] fp32 params cut to {MOE_CUT} layers ({cut.first_dense_layers} "
+        f"dense, {MOE_CUT - cut.first_dense_layers} moe; a depth cut, the "
+        f"widths full; {cut_bytes / 1e9:.2f} GB), B {Bc}, prompt {Sc}, {newc} "
+        f"new tokens: card and CPU tokens identical {a.tokens.tolist()}; "
+        f"last-step max |logits diff| {err32:.3e} (tolerance 1e-4; logits std "
+        f"{float(b.prefill_logits.std()):.3f}); card {t_card:.1f} s, CPU "
+        f"{t_cpu:.1f} s host wall")
+    del p32, cpu
+    torch.cuda.empty_cache()
+    summary = dict(prefill_ms=t_prefill * 1e3, step_ms=step * 1e3,
+                   tokens_per_s=SERVE_BATCH / step, peak_gb=peak / 1e9,
+                   pipeline_wall_s=t_pipe, stream=stream, fp32_cut_err=err32,
+                   teacher_forced=forced)
+    return launches["decode_attention"], timing, summary, err
+
+
+# ---------------------------------------------------------------------------
 
 
 def build_all():
@@ -2153,8 +2698,15 @@ def main() -> int:
      errs["flash_attention"]) = flash_phase(dev, peaks, card)
     timing["ssd_scan"], launches["ssd_scan"], errs["ssd_scan"] = mamba2_phase(
         dev, peaks, card)
+    pipe_launches, pipe = pipeline_phase(dev, card)
+    moe_launches, moe_timing, moe, moe_err = moe_phase(dev, peaks, card)
+    timing["decode_attention"].update(
+        pipeline_launches=pipe_launches, pipeline=pipe,
+        moe_generate_launches=moe_launches, moe_decode_shape=moe_timing,
+        moe=moe)
+    errs["decode_attention"] = max(errs["decode_attention"], moe_err)
 
-    # ---- 8. kernels line -------------------------------------------------
+    # ---- 10. kernels line ------------------------------------------------
     kernels = [dict(name=k, route="cuda", source=SOURCES[k],
                     replaces=REPLACES[k], launches=launches[k],
                     max_abs_err=errs[k], **timing[k])

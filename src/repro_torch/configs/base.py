@@ -236,13 +236,13 @@ _ARCH_MODULES = {
     "minicpm-2b": "minicpm_2b",
     "codeqwen1.5-7b": "codeqwen1_5_7b",
     "mamba2-370m": "mamba2_370m",
+    "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
+    "deepseek-moe-16b": "deepseek_moe_16b",
 }
 
 # The reference's other architectures, each with where the port stands.
 _NOT_PORTED = {
     "zamba2-7b": "ROADMAP.md Queue 1 item 5 ports the hybrid family",
-    "kimi-k2-1t-a32b": "ROADMAP.md Queue 1 item 5 ports the moe family",
-    "deepseek-moe-16b": "ROADMAP.md Queue 1 item 5 ports the moe family",
     "seamless-m4t-medium": "ROADMAP.md Queue 1 item 5 ports the encdec family",
     "internvl2-2b": "ROADMAP.md Queue 1 item 4 (its vlm half) ports it",
     "sparse-dnn-graphchallenge": (

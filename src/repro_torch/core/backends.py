@@ -358,6 +358,8 @@ class AttentionBackend(Protocol):
     Caches arrive as ``[B, KV, S, D]`` with ``S`` already padded per
     ``cache_layout(max_len)``.  ``cache_len`` is an int or an int32 tensor
     on the cache's device, so a decode loop never syncs with the host.
+    ``q`` may be narrower than the cache (bf16 over the moe family's fp32
+    cache): it is widened, and the output rounded to ``q.dtype`` once.
     """
 
     name: str
@@ -480,10 +482,15 @@ class TorchSplitKAttention:
         return out.to(q.dtype)
 
     def decode_partial(self, q, k_cache, v_cache, cache_len):
+        """A ``q`` narrower than the cache (the moe family's bf16 ``q`` over
+        its fp32 cache) is widened to the cache's dtype, which is exact, and
+        the kernel of that dtype runs; :meth:`decode` rounds its output to
+        ``q.dtype`` once, as the reference's kernel writes it."""
         S = k_cache.shape[2]
         self.cache_layout(S).check_capacity(S)  # no silent per-step re-pad
         B, _, H, D = q.shape
-        out, lse = decode_mha(q.reshape(B, H, D), k_cache, v_cache, cache_len)
+        out, lse = decode_mha(q.reshape(B, H, D).to(k_cache.dtype), k_cache,
+                              v_cache, cache_len)
         return out[:, None], lse[:, None]
 
 

@@ -39,7 +39,7 @@ _STATIC_KEYS = frozenset({"conv", "ssm", "length"})
 
 
 def seq_axis_tree(cache: Any, _path=()) -> Any:
-    """A tree matching ``cache`` (nested dicts of tensors) of
+    """A tree matching ``cache`` (nested dicts and lists of tensors) of
     ``Optional[int]``: the sequence axis of every *growing* KV leaf (always
     ``-2`` in the kernel's layout), or ``None`` for slot-resident state.
 
@@ -49,11 +49,14 @@ def seq_axis_tree(cache: Any, _path=()) -> Any:
     path: ``k``/``v`` subtrees grow, unless a key on the path marks
     slot-resident state (``conv``, ``ssm``, ``length``).  The port's mamba2 conv
     cache is a dict of ``x``, ``B`` and ``C`` tails; the ``conv`` key on
-    their path keeps them in the slot.  Families re-export this as
-    ``cache_seq_axes``.
+    their path keeps them in the slot.  The moe cache's ``stacks`` is a list
+    of ``{k, v}`` dicts, one a block kind; a list adds no key to the path.
+    Families re-export this as ``cache_seq_axes``.
     """
     if isinstance(cache, dict):
         return {k: seq_axis_tree(v, _path + (k,)) for k, v in cache.items()}
+    if isinstance(cache, list):
+        return [seq_axis_tree(v, _path) for v in cache]
     if any(k in _STATIC_KEYS for k in _path):
         return None
     if any(k in _GROWING_KV_KEYS for k in _path) and cache.dim() >= 4:

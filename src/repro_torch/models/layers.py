@@ -22,7 +22,7 @@ from torch import nn
 PARAM_DTYPE = torch.bfloat16
 ACC_DTYPE = torch.float32
 
-__all__ = ["PARAM_DTYPE", "ACC_DTYPE", "matmul_acc", "dense_init",
+__all__ = ["PARAM_DTYPE", "ACC_DTYPE", "matmul_acc", "bmm_acc", "dense_init",
            "embed_init", "empty_param", "rms_norm", "rope_frequencies", "apply_rope",
            "Attention", "Mlp", "init_attention", "init_mlp", "mlp",
            "qkv_project", "out_project", "embed_tokens", "unembed"]
@@ -52,6 +52,18 @@ def matmul_acc(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     else:
         y = x2.to(ACC_DTYPE) @ w.to(ACC_DTYPE)
     return y.reshape(*lead, w.shape[-1])
+
+
+def bmm_acc(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Batched ``x [E, M, K] @ w [E, K, N]`` → fp32 ``[E, M, N]``, as
+    :func:`matmul_acc` does it: on a CUDA card a bf16 product goes to
+    cuBLAS with an fp32 output (``torch.bmm(..., out_dtype=float32)``), on
+    the CPU the operands are widened to fp32 first."""
+    if x.dtype == ACC_DTYPE and w.dtype == ACC_DTYPE:
+        return torch.bmm(x, w)
+    if x.is_cuda:
+        return torch.bmm(x, w, out_dtype=ACC_DTYPE)
+    return torch.bmm(x.to(ACC_DTYPE), w.to(ACC_DTYPE))
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,502 @@
+"""Mixture-of-Experts decoder (kimi-k2-1t, deepseek-moe-16b).
+
+Routing: top-k with the gate weights normalized over the selected experts
+(DeepSeek-style), shared experts always active, and dense first layers
+(``cfg.first_dense_layers``).
+
+Dispatch is grouped, sort-based and of static capacity, as in the
+reference: the tokens split into ``dp_groups`` groups, each expert takes at
+most ``C = int(ceil(T_group·k/E) · capacity_factor)`` tokens of a group
+(the rest drop), and the experts run as one batched product over the
+``[E, G·C, d]`` dispatch buffer.  Which tokens share a group decides which
+compete for capacity: ``generate`` routes its whole batch as one group,
+and a decode step with one cache length a row (the continuous-batching
+step) routes each row as its own, as the reference's step mapped over
+slots does.
+
+Everything that depends on the data is computed on the device from shapes
+alone (no ``.item()``, ``nonzero`` or boolean-mask indexing), so the
+continuous-batching step that runs it can be captured in a CUDA graph.
+The combine adds each token's expert outputs in a fixed order, expert id
+ascending (the order of the reference's scatter-add over the ``[E, C]``
+table), then the shared experts: no atomics, so a run gives the same bits
+every time.
+
+Parameters live in a :class:`Moe` module: ``embed``, ``dense_blocks`` and
+``moe_blocks`` (``ModuleList``\\ s; a moe block's experts are stacked
+``[E, d, f]`` parameters and its router is fp32), ``ln_f`` and ``unembed``.
+The decode cache is fp32 (:data:`DECODE_CACHE_DTYPE`) and holds one KV
+stack per block kind: ``{"stacks": [dense {k, v}, moe {k, v}], "length"}``,
+the reference's layout.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.backends import KVCacheLayout, get_backend
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as TF
+from repro_torch.models.kvcache import seq_axis_tree
+
+__all__ = ["DECODE_CACHE_DTYPE", "MoeFfn", "Block", "Moe", "init",
+           "params_from_arrays", "route_topk", "moe_ffn", "forward",
+           "prefill", "decode_step", "cache_seq_axes", "slice_stage_params",
+           "stage_prefill", "stage_decode_step"]
+
+ACC = L.ACC_DTYPE
+
+# The moe family decodes from an fp32 KV cache, as the reference does: the
+# router amplifies bf16 rounding of cached K and V into ~2.5e-2 logit error
+# on kimi-k2's worst rows (the reference's numerics note, moe.py:38-45).
+DECODE_CACHE_DTYPE = torch.float32
+
+
+# ---------------------------------------------------------------------------
+# parameters
+# ---------------------------------------------------------------------------
+
+
+class MoeFfn(nn.Module):
+    def __init__(self, cfg: ModelConfig, dtype=L.PARAM_DTYPE, device="cpu"):
+        super().__init__()
+        d, f, E = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
+        self.router = L.empty_param((d, E), torch.float32, device)
+        self.w_gate = L.empty_param((E, d, f), dtype, device)
+        self.w_up = L.empty_param((E, d, f), dtype, device)
+        self.w_down = L.empty_param((E, f, d), dtype, device)
+        self.shared = (L.Mlp(d, f * cfg.n_shared_experts, dtype=dtype,
+                             device=device)
+                       if cfg.n_shared_experts else None)
+
+
+class Block(nn.Module):
+    """A decoder block: attention, then a dense ``mlp`` or a ``moe``."""
+
+    def __init__(self, cfg: ModelConfig, dense: bool, dtype=L.PARAM_DTYPE,
+                 device="cpu"):
+        super().__init__()
+        self.ln_attn = L.empty_param((cfg.d_model,), dtype, device)
+        self.attn = L.Attention(cfg.d_model, cfg.eff_heads, cfg.eff_kv_heads,
+                                cfg.d_head, qkv_bias=cfg.qkv_bias,
+                                dtype=dtype, device=device)
+        self.ln_mlp = L.empty_param((cfg.d_model,), dtype, device)
+        self.mlp = L.Mlp(cfg.d_model, cfg.d_ff, dtype=dtype,
+                         device=device) if dense else None
+        self.moe = None if dense else MoeFfn(cfg, dtype, device)
+
+
+class Moe(nn.Module):
+    """Parameter container; the math is in the functions below.  Built with
+    uninitialized storage: :func:`init` and :func:`params_from_arrays` fill
+    it."""
+
+    def __init__(self, cfg: ModelConfig, dtype=L.PARAM_DTYPE, device="cpu"):
+        super().__init__()
+        V, d = cfg.padded_vocab(), cfg.d_model
+        fd = cfg.first_dense_layers
+        self.embed = L.empty_param((V, d), dtype, device)
+        self.dense_blocks = nn.ModuleList(
+            Block(cfg, True, dtype, device) for _ in range(fd))
+        self.moe_blocks = nn.ModuleList(
+            Block(cfg, False, dtype, device) for _ in range(cfg.n_layers - fd))
+        self.ln_f = L.empty_param((d,), dtype, device)
+        self.unembed = None if cfg.tie_embeddings else L.empty_param((V, d), dtype,
+                                                                device)
+
+    @property
+    def head(self) -> torch.Tensor:
+        return self.embed if self.unembed is None else self.unembed
+
+
+def _stacks(dense_blocks, moe_blocks) -> List[nn.ModuleList]:
+    """The block stacks present, in layer order (the reference's
+    ``_stacked_blocks``/``_present_stacks``): one KV stack each."""
+    return [s for s in (dense_blocks, moe_blocks) if s is not None and len(s)]
+
+
+def init(generator: torch.Generator, cfg: ModelConfig,
+         dtype=L.PARAM_DTYPE) -> Moe:
+    """Random weights from ``generator``, on its device, with the
+    reference's initializers (normal with 1/fan-in variance, 0.02
+    embeddings, unit norms, an fp32 router), each expert bank scaled by
+    its own fan-in: d for ``w_gate`` and ``w_up``, f for ``w_down``.  (The
+    reference's ``init_moe_ffn`` leaves ``w_gate``/``w_up`` to
+    ``dense_init``'s default, the leading axis E, which makes every moe
+    output ~10x the residual stream: a routing so sensitive that one
+    bf16 rounding of an attention output changes the experts of most
+    tokens within a few layers, PERF.md §6.  Only the scale of random
+    weights differs; loaded weights (:func:`params_from_arrays`) are the
+    reference's.)"""
+    model = Moe(cfg, dtype=dtype, device=generator.device)
+    for block in list(model.dense_blocks) + list(model.moe_blocks):
+        block.ln_attn.fill_(1.0)
+        L.init_attention(block.attn, generator)
+        block.ln_mlp.fill_(1.0)
+        if block.mlp is not None:
+            L.init_mlp(block.mlp, generator)
+            continue
+        m = block.moe
+        m.router.copy_(L.dense_init(generator, tuple(m.router.shape),
+                                    dtype=torch.float32))
+        for w in (m.w_gate, m.w_up):
+            w.copy_(L.dense_init(generator, tuple(w.shape),
+                                 in_axis_size=cfg.d_model, dtype=dtype))
+        m.w_down.copy_(L.dense_init(generator, tuple(m.w_down.shape),
+                                    in_axis_size=cfg.moe_d_ff, dtype=dtype))
+        if m.shared is not None:
+            L.init_mlp(m.shared, generator)
+    model.embed.copy_(L.embed_init(generator, tuple(model.embed.shape), dtype))
+    model.ln_f.fill_(1.0)
+    if model.unembed is not None:
+        model.unembed.copy_(L.embed_init(generator, tuple(model.unembed.shape),
+                                         dtype))
+    return model
+
+
+def params_from_arrays(cfg: ModelConfig, tree: Mapping[str, Any],
+                       device="cpu", dtype=L.PARAM_DTYPE) -> Moe:
+    """Load the reference's param tree into a :class:`Moe`.
+
+    ``tree`` is the reference's ``init`` output as numpy arrays:
+    ``embed``, ``ln_f``, optional ``unembed``, and ``dense_blocks`` (or
+    ``None``) and ``moe_blocks`` with every leaf stacked on a leading layer
+    axis.  Leaves go through fp32 (bf16 → fp32 → bf16 is exact), then to
+    ``dtype`` on ``device``; the router stays fp32, as the reference's.
+    """
+    model = Moe(cfg, dtype=dtype, device=device)
+
+    def put(dst: torch.Tensor, src) -> None:
+        a = np.array(src, dtype=np.float32)  # a writable copy
+        if tuple(a.shape) != tuple(dst.shape):
+            raise ValueError(f"param shape {a.shape} != {tuple(dst.shape)}")
+        dst.copy_(torch.from_numpy(a))
+
+    def load(module: nn.Module, stacked: Mapping[str, Any], i: int) -> None:
+        for name, p in module.named_parameters():
+            node = stacked
+            for part in name.split("."):
+                node = node[part]
+            put(p, node[i])
+
+    put(model.embed, tree["embed"])
+    put(model.ln_f, tree["ln_f"])
+    if model.unembed is not None:
+        put(model.unembed, tree["unembed"])
+    elif "unembed" in tree:
+        raise ValueError(f"{cfg.name} ties its embeddings; the tree has an unembed")
+    for key in ("dense_blocks", "moe_blocks"):
+        blocks = getattr(model, key)
+        if len(blocks) and tree.get(key) is None:
+            raise ValueError(f"the tree has no {key} for {len(blocks)} layers")
+        for i, block in enumerate(blocks):
+            load(block, tree[key], i)
+    return model
+
+
+# ---------------------------------------------------------------------------
+# routing + dispatch
+# ---------------------------------------------------------------------------
+
+
+def _total_order(x: torch.Tensor) -> torch.Tensor:
+    """fp32 → int32 keys in the total order ``jax.lax.top_k`` sorts by:
+    the order of the values, with -0.0 below +0.0."""
+    bits = x.to(ACC).contiguous().view(torch.int32)
+    return torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+
+
+def route_topk(logits: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``[T, E]`` → (gate weights ``[T, k]`` fp32, softmax over the k
+    selected logits; expert ids ``[T, k]``), as ``jax.lax.top_k``: a
+    stable descending sort keeps the lower expert id first among equal
+    logits (``torch.topk`` promises no order on ties), and the sort keys
+    put -0.0 below +0.0."""
+    _, idx = torch.sort(_total_order(logits), dim=-1, descending=True,
+                        stable=True)
+    idx = idx[..., :k]
+    vals = torch.gather(logits, -1, idx)
+    return torch.softmax(vals.to(ACC), dim=-1), idx
+
+
+def _dispatch_tables(e_flat: torch.Tensor, E: int, C: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sort-based capacity dispatch within each token group.
+
+    ``e_flat``: ``[..., A]`` expert id per assignment (A = T_group·k).
+    Returns ``(table [..., E, C], valid [..., E, C])``: slot (e, c) holds
+    the assignment that is expert e's c-th in (stable) sorted order, while
+    c < C; an empty slot holds 0 and is not valid.  The reference drops the
+    overflow with a scatter ``mode="drop"`` at column C; here the table has
+    a column C that takes the overflow and is cut off."""
+    lead, A = e_flat.shape[:-1], e_flat.shape[-1]
+    e = e_flat.reshape(-1, A).long()
+    n, dev = e.shape[0], e.device
+    order = torch.argsort(e, dim=-1, stable=True)
+    sorted_e = torch.gather(e, 1, order)
+    experts = torch.arange(E, device=dev).expand(n, E).contiguous()
+    seg_start = torch.searchsorted(sorted_e, experts, side="left")
+    rank = torch.arange(A, device=dev) - torch.gather(seg_start, 1, sorted_e)
+    col = torch.where(rank < C, rank, torch.full_like(rank, C))
+    table = torch.full((n, E, C + 1), A, dtype=torch.long, device=dev)
+    table[torch.arange(n, device=dev)[:, None], sorted_e, col] = order
+    table = table[:, :, :C]
+    valid = table < A
+    table = torch.where(valid, table, torch.zeros_like(table))
+    return table.reshape(*lead, E, C), valid.reshape(*lead, E, C)
+
+
+def moe_ffn(p: MoeFfn, x: torch.Tensor, cfg: ModelConfig, dp_groups: int = 1,
+            metrics: bool = True
+            ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """x ``[B, S, d]`` → (out ``[B, S, d]`` in ``x.dtype``, metrics).
+
+    ``metrics`` (the Switch-style ``lb_loss`` and the share of empty
+    expert slots ``drop_frac``, as the reference computes them) are
+    ``None`` with ``metrics=False``, which serving passes."""
+    B, S, d = x.shape
+    E, k = cfg.n_experts, cfg.experts_per_token
+    xf = x.reshape(B * S, d)
+    T = B * S
+    G = max(1, min(dp_groups, T))
+    while T % G:
+        G -= 1
+    Tg = T // G
+    C = max(1, int(-(-Tg * k // E) * cfg.moe_capacity_factor))
+    dev = x.device
+
+    logits = xf.to(ACC) @ p.router                    # [T, E] fp32
+    w, idx = route_topk(logits, k)                    # [T, k]
+    tables, valid = _dispatch_tables(idx.reshape(G, Tg * k), E, C)  # [G, E, C]
+
+    # the token of each slot: slot (g, e, c) holds assignment
+    # g·Tg·k + tables[g, e, c], whose token is that over k
+    base = (torch.arange(G, device=dev) * (Tg * k))[:, None, None]
+    slot_token = ((tables + base) // k).transpose(0, 1).reshape(E, G * C)
+    xe = xf[slot_token]                               # [E, G·C, d]
+    gate = L.bmm_acc(xe, p.w_gate)
+    up = L.bmm_acc(xe, p.w_up)
+    h = (torch.nn.functional.silu(gate) * up).to(x.dtype)
+    oe = L.bmm_acc(h, p.w_down).reshape(E * G * C, d)  # fp32
+
+    # Each assignment's slot, read back from the tables: slot (g, e, c)
+    # holds assignment tables[g, e, c] when valid.  An assignment that was
+    # dropped keeps -1; the scatter of the empty slots aims at a column A
+    # that is cut off.  Valid slots hold distinct assignments.
+    A = Tg * k
+    slot_ids = torch.arange(E * C, device=dev).expand(G, E * C)
+    aim = torch.where(valid, tables, torch.full_like(tables, A)).reshape(G, E * C)
+    slot_of = torch.full((G, A + 1), -1, dtype=torch.long, device=dev)
+    slot_of.scatter_(1, aim, slot_ids)
+    s = slot_of[:, :A].reshape(T, k)                  # per token and choice
+    kept = s >= 0
+    s = s.clamp(min=0)
+    g_of = (torch.arange(T, device=dev) // Tg)[:, None]
+    rows = (s // C) * (G * C) + g_of * C + s % C
+    contrib = oe[rows] * w[..., None]                 # [T, k, d]
+    contrib = torch.where(kept[..., None], contrib, torch.zeros_like(contrib))
+    # expert id ascending, each token's sum started from +0.0 as the
+    # reference's scatter-add starts from its zeros
+    order = torch.argsort(idx, dim=-1, stable=True)
+    contrib = torch.gather(contrib, 1, order[..., None].expand(T, k, d))
+    out = torch.zeros((T, d), dtype=ACC, device=dev)
+    for j in range(k):
+        out = out + contrib[:, j]
+    if p.shared is not None:
+        out = out + L.mlp(p.shared, x).reshape(T, d).to(ACC)
+    out = out.reshape(B, S, d).to(x.dtype)
+    if not metrics:
+        return out, None
+    probs = torch.softmax(logits, dim=-1)
+    counts = torch.zeros((E,), dtype=ACC, device=dev).scatter_add_(
+        0, idx.reshape(-1), torch.ones((T * k,), dtype=ACC, device=dev))
+    lb_loss = E * torch.sum((counts / (T * k)) * probs.mean(dim=0))
+    drop_frac = 1.0 - valid.to(ACC).mean()
+    return out, {"lb_loss": lb_loss, "drop_frac": drop_frac}
+
+
+def _ffn(cfg: ModelConfig, dp_groups: int) -> Callable:
+    """A block's feed-forward half, residual included: the dense ``mlp``
+    or the routed ``moe``."""
+    def ffn(block: Block, x: torch.Tensor) -> torch.Tensor:
+        h = L.rms_norm(x, block.ln_mlp, cfg.norm_eps)
+        if block.mlp is not None:
+            return x + L.mlp(block.mlp, h)
+        out, _ = moe_ffn(block.moe, h, cfg, dp_groups, metrics=False)
+        return x + out
+    return ffn
+
+
+# ---------------------------------------------------------------------------
+# forward (teacher-forced)
+# ---------------------------------------------------------------------------
+
+
+def forward(params: Moe, tokens: torch.Tensor, cfg: ModelConfig,
+            dp_groups: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens [B, S] → (logits [B, S, V] fp32, the moe layers' summed
+    ``lb_loss``)."""
+    x = L.embed_tokens(params.embed, tokens)
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    lb = torch.zeros((), dtype=ACC, device=x.device)
+    for block in list(params.dense_blocks) + list(params.moe_blocks):
+        x, _, _ = TF._attn_prefill(block, x, cfg, positions)
+        h = L.rms_norm(x, block.ln_mlp, cfg.norm_eps)
+        if block.mlp is not None:
+            x = x + L.mlp(block.mlp, h)
+        else:
+            out, m = moe_ffn(block.moe, h, cfg, dp_groups)
+            x, lb = x + out, lb + m["lb_loss"]
+    return TF.final_logits(x, params.ln_f, params.head, cfg), lb
+
+
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
+
+
+def _prefill_stacks(stacks, x, cfg, max_len, dp_groups, layout):
+    caches = []
+    for blocks in stacks:
+        x, c = TF.prefill_layers(blocks, x, cfg, max_len, layout,
+                                 _ffn(cfg, dp_groups),
+                                 cache_dtype=DECODE_CACHE_DTYPE)
+        caches.append({"k": c["k"], "v": c["v"]})
+    S = x.shape[1]
+    return x, {"stacks": caches,
+               "length": torch.full((), S, dtype=torch.int32, device=x.device)}
+
+
+def _decode_stacks(attn, stacks, x, cache, cfg, dp_groups):
+    S = int(cache["stacks"][-1]["k"].shape[3])
+    step = TF.decode_positions(cache["length"], x.shape[0], S)
+    for blocks, kv in zip(stacks, cache["stacks"]):
+        x = TF.decode_layers(attn, blocks, x, kv["k"], kv["v"], cfg, step,
+                             _ffn(cfg, dp_groups))
+    return x, {**cache, "length": cache["length"] + 1}
+
+
+def prefill(params: Moe, tokens: torch.Tensor, cfg: ModelConfig,
+            max_len: int, dp_groups: int = 1,
+            layout: KVCacheLayout = KVCacheLayout(),
+            ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Run the prompt; the cache holds one fp32 ``[L, B, KV, S_cap, D]``
+    KV stack per block kind.  Returns the last position's logits
+    [B, 1, V] (fp32) and the cache."""
+    x = L.embed_tokens(params.embed, tokens)
+    x, cache = _prefill_stacks(_stacks(params.dense_blocks, params.moe_blocks),
+                               x, cfg, max_len, dp_groups, layout)
+    return TF.final_logits(x[:, -1:], params.ln_f, params.head, cfg), cache
+
+
+def decode_step(params: Moe, token: torch.Tensor, cache: Dict[str, Any],
+                cfg: ModelConfig, dp_groups: int = 1, *, attn_backend=None,
+                layout: Optional[KVCacheLayout] = None,
+                ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """One decode step, token [B, 1] → logits [B, 1, V] (fp32), as
+    ``transformer.decode_step`` (K and V written in place; ``length`` a
+    scalar or ``[B]``).  The backend gets a ``q`` in the params' dtype and
+    the fp32 cache, widens ``q`` and rounds its output to ``q``'s dtype.
+    ``dp_groups`` groups the B tokens for routing when the batch shares
+    one length; with one length a row (the continuous-batching slots,
+    each its own request) each row is its own group, as each B = 1 step
+    of the reference's scheduler routes its one token, so that a row's
+    experts never depend on its neighbours."""
+    attn = get_backend("attention", attn_backend)
+    if cache["length"].dim() == 1:
+        dp_groups = token.shape[0]
+    if layout is not None:
+        layout.check_capacity(int(cache["stacks"][-1]["k"].shape[3]))
+    x = L.embed_tokens(params.embed, token)
+    x, new_cache = _decode_stacks(
+        attn, _stacks(params.dense_blocks, params.moe_blocks), x, cache, cfg,
+        dp_groups)
+    return TF.final_logits(x, params.ln_f, params.head, cfg), new_cache
+
+
+def cache_seq_axes(cache):
+    """Growing-KV sequence axes: every ``k``/``v`` leaf inside ``stacks``
+    pages into the KV pool (seq axis -2); ``length`` stays slot-resident.
+    See :func:`repro_torch.models.kvcache.seq_axis_tree`."""
+    return seq_axis_tree(cache)
+
+
+# ---------------------------------------------------------------------------
+# pipeline stages (the serverless LM executor, ``faas/lm_pipeline.py``)
+# ---------------------------------------------------------------------------
+#
+# Global layer ``l`` is ``dense_blocks[l]`` for ``l < first_dense_layers``
+# and ``moe_blocks[l - first_dense_layers]`` otherwise.  A stage slices
+# each stack it straddles; the stage functions run ``_prefill_stacks`` and
+# ``_decode_stacks`` over the slices, so chained stages run the monolithic
+# model's per-layer ops in the same order.
+
+
+def _stage_stacks(cfg: ModelConfig, start: int, stop: int):
+    """(dense_range, moe_range) a [start, stop) slice covers — either may be
+    ``None``.  The moe range is stack-local (offset by first_dense_layers)."""
+    fd = cfg.first_dense_layers
+    dense = (start, min(stop, fd))
+    m = (max(start, fd) - fd, stop - fd)
+    return (dense if dense[1] > dense[0] else None,
+            m if m[1] > m[0] else None)
+
+
+def slice_stage_params(params: Moe, spec, cfg: ModelConfig) -> Dict[str, Any]:
+    """The parameters stage ``spec`` keeps resident: a ``ModuleList`` slice
+    of each stack it straddles (sharing the model's modules, no copy) and,
+    as it needs them, ``embed``, ``ln_f`` and ``unembed``."""
+    dense_r, moe_r = _stage_stacks(cfg, spec.start, spec.stop)
+    out: Dict[str, Any] = {
+        "dense_blocks": (params.dense_blocks[dense_r[0]:dense_r[1]]
+                         if dense_r else None),
+        "moe_blocks": (params.moe_blocks[moe_r[0]:moe_r[1]]
+                       if moe_r else None),
+    }
+    if spec.has_embed:
+        out["embed"] = params.embed
+    if spec.has_head:
+        out["ln_f"] = params.ln_f
+        if params.unembed is not None:
+            out["unembed"] = params.unembed
+        elif not spec.has_embed:
+            out["embed"] = params.embed  # a tied head needs the table
+    return out
+
+
+def stage_prefill(sp: Dict[str, Any], spec, x_in: torch.Tensor,
+                  cfg: ModelConfig, max_len: int, dp_groups: int = 1,
+                  layout: KVCacheLayout = KVCacheLayout(),
+                  ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """One stage of ``prefill``: token ids [B, S] in on the embedding stage,
+    hidden states [B, S, d] otherwise; logits [B, 1, V] out on the head
+    stage.  The stage's KV stacks stay resident in its cache."""
+    x = L.embed_tokens(sp["embed"], x_in) if spec.has_embed else x_in
+    x, cache = _prefill_stacks(_stacks(sp["dense_blocks"], sp["moe_blocks"]),
+                               x, cfg, max_len, dp_groups, layout)
+    if spec.has_head:
+        return TF.stage_head(sp, x[:, -1:], cfg), cache
+    return x, cache
+
+
+def stage_decode_step(sp: Dict[str, Any], spec, x_in: torch.Tensor,
+                      cache: Dict[str, Any], cfg: ModelConfig,
+                      dp_groups: int = 1, *, attn_backend=None,
+                      ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """One stage of ``decode_step``: token [B, 1] in on the embedding
+    stage, hidden [B, 1, d] otherwise; logits [B, 1, V] out on the head
+    stage."""
+    attn = get_backend("attention", attn_backend)
+    x = L.embed_tokens(sp["embed"], x_in) if spec.has_embed else x_in
+    x, new_cache = _decode_stacks(
+        attn, _stacks(sp["dense_blocks"], sp["moe_blocks"]), x, cache, cfg,
+        dp_groups)
+    if spec.has_head:
+        return TF.stage_head(sp, x, cfg), new_cache
+    return x, new_cache

@@ -11,7 +11,7 @@ arrays) into the module, so both packages can hold the same weights.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,7 +30,10 @@ from repro_torch.models.kvcache import (
 Cache = Dict[str, torch.Tensor]
 
 __all__ = ["Block", "Transformer", "init", "params_from_arrays", "forward",
-           "prefill", "decode_step", "cache_seq_axes", "param_count"]
+           "prefill", "decode_step", "cache_seq_axes", "param_count",
+           "prefill_layers", "decode_positions", "decode_layers", "final_logits",
+           "slice_stage_params", "stage_head", "stage_prefill",
+           "stage_decode_step"]
 
 
 # ---------------------------------------------------------------------------
@@ -148,10 +151,10 @@ def _attn_prefill(block: Block, x: torch.Tensor, cfg: ModelConfig,
     return x + L.out_project(block.attn, o, x.dtype), k, v
 
 
-def _unembed_last(params: Transformer, x: torch.Tensor,
-                  cfg: ModelConfig) -> torch.Tensor:
-    x = L.rms_norm(x, params.ln_f, cfg.norm_eps)
-    return L.unembed(x, params.head)
+def final_logits(x: torch.Tensor, ln_f: torch.Tensor, table: torch.Tensor,
+                 cfg: ModelConfig) -> torch.Tensor:
+    """The final norm and the unembedding → fp32 logits."""
+    return L.unembed(L.rms_norm(x, ln_f, cfg.norm_eps), table)
 
 
 # ---------------------------------------------------------------------------
@@ -168,12 +171,36 @@ def forward(params: Transformer, tokens: torch.Tensor,
     for block in params.blocks:
         x, _, _ = _attn_prefill(block, x, cfg, positions)
         x = _mlp_apply(block, x, cfg)
-    return _unembed_last(params, x, cfg)
+    return final_logits(x, params.ln_f, params.head, cfg)
 
 
 # ---------------------------------------------------------------------------
 # serving: prefill + decode
 # ---------------------------------------------------------------------------
+
+
+def prefill_layers(blocks, x: torch.Tensor, cfg: ModelConfig, max_len: int,
+                   layout: KVCacheLayout, ffn: Callable, cache_dtype=None,
+                   ) -> Tuple[torch.Tensor, Cache]:
+    """Run the prompt's hidden states ``x [B, S, d]`` through ``blocks``;
+    ``ffn(block, x)`` is the block's feed-forward half.  Returns the hidden
+    states and the blocks' ``[L, B, KV, S_cap, D]`` KV cache in
+    ``cache_dtype`` (default ``x.dtype``), ``length`` S."""
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    cache = init_attn_cache(len(blocks), B, max_len, cfg.eff_kv_heads,
+                            cfg.d_head, dtype=cache_dtype or x.dtype,
+                            layout=layout, device=x.device)
+    for i, block in enumerate(blocks):
+        x, k, v = _attn_prefill(block, x, cfg, positions)
+        x = ffn(block, x)
+        update_layer_kv(cache, i, k, v, 0)
+    cache["length"].fill_(S)
+    return x, cache
+
+
+def _dense_ffn(cfg: ModelConfig) -> Callable:
+    return lambda block, x: _mlp_apply(block, x, cfg)
 
 
 def prefill(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
@@ -183,17 +210,9 @@ def prefill(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
     ``layout.padded_len(max_len)`` (see ``models.kvcache``).  Returns the
     last position's logits [B, 1, V] (fp32) and the cache."""
     x = L.embed_tokens(params.embed, tokens)
-    B, S, _ = x.shape
-    positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
-    cache = init_attn_cache(cfg.n_layers, B, max_len, cfg.eff_kv_heads,
-                            cfg.d_head, dtype=x.dtype, layout=layout,
-                            device=x.device)
-    for i, block in enumerate(params.blocks):
-        x, k, v = _attn_prefill(block, x, cfg, positions)
-        x = _mlp_apply(block, x, cfg)
-        update_layer_kv(cache, i, k, v, 0)
-    cache["length"].fill_(S)
-    return _unembed_last(params, x[:, -1:], cfg), cache
+    x, cache = prefill_layers(params.blocks, x, cfg, max_len, layout,
+                              _dense_ffn(cfg))
+    return final_logits(x[:, -1:], params.ln_f, params.head, cfg), cache
 
 
 def _decode_attn(attn, q, k, v, k_cache, v_cache, at, cache_len):
@@ -210,6 +229,36 @@ def _decode_attn(attn, q, k, v, k_cache, v_cache, at, cache_len):
         else:
             cache.index_copy_(2, at, new.reshape(B, KV, 1, D))
     return attn.decode(q, k_cache, v_cache, cache_len)
+
+
+def decode_positions(pos: torch.Tensor, B: int, S: int):
+    """``(positions [B, 1], at, cache_len)`` of a decode step at cache
+    length ``pos`` (a scalar or ``[B]``) over a cache of capacity S: each
+    row's RoPE position, where :func:`_decode_attn` writes its K and V,
+    and the keys it attends to."""
+    if pos.dim() == 0:
+        return (pos.reshape(1, 1).expand(B, 1), pos.reshape(1).long(),
+                (pos + 1).reshape(-1))
+    at = (torch.arange(B, device=pos.device), pos.clamp(max=S - 1).long())
+    return pos.reshape(B, 1), at, (pos + 1).reshape(-1)
+
+
+def decode_layers(attn, blocks, x: torch.Tensor, k_cache: torch.Tensor,
+                  v_cache: torch.Tensor, cfg: ModelConfig, step,
+                  ffn: Callable) -> torch.Tensor:
+    """One token's hidden states ``x [B, 1, d]`` through ``blocks``, whose
+    caches are ``k_cache``/``v_cache [L, B, KV, S, D]`` (written in place);
+    ``step`` is :func:`decode_positions`' triple."""
+    positions, at, cache_len = step
+    for i, block in enumerate(blocks):
+        hn = L.rms_norm(x, block.ln_attn, cfg.norm_eps)
+        q, k, v = L.qkv_project(block.attn, hn)
+        q = L.apply_rope(q, positions, cfg.rope_theta)
+        k = L.apply_rope(k, positions, cfg.rope_theta)
+        o = _decode_attn(attn, q, k, v, k_cache[i], v_cache[i], at, cache_len)
+        x = x + L.out_project(block.attn, o.to(x.dtype), x.dtype)
+        x = ffn(block, x)
+    return x
 
 
 def decode_step(
@@ -242,26 +291,82 @@ def decode_step(
     if layout is not None:
         layout.check_capacity(S)
     x = L.embed_tokens(params.embed, token)
-    B = x.shape[0]
-    pos = cache["length"]
-    if pos.dim() == 0:
-        positions = pos.reshape(1, 1).expand(B, 1)
-        at = pos.reshape(1).long()
-    else:
-        positions = pos.reshape(B, 1)
-        at = (torch.arange(B, device=x.device), pos.clamp(max=S - 1).long())
-    cache_len = (pos + 1).reshape(-1)
-    for i, block in enumerate(params.blocks):
-        hn = L.rms_norm(x, block.ln_attn, cfg.norm_eps)
-        q, k, v = L.qkv_project(block.attn, hn)
-        q = L.apply_rope(q, positions, cfg.rope_theta)
-        k = L.apply_rope(k, positions, cfg.rope_theta)
-        o = _decode_attn(attn, q, k, v, cache["k"][i], cache["v"][i], at,
-                         cache_len)
-        x = x + L.out_project(block.attn, o.to(x.dtype), x.dtype)
-        x = _mlp_apply(block, x, cfg)
-    logits = _unembed_last(params, x, cfg)
+    step = decode_positions(cache["length"], x.shape[0], S)
+    x = decode_layers(attn, params.blocks, x, cache["k"], cache["v"], cfg,
+                      step, _dense_ffn(cfg))
+    logits = final_logits(x, params.ln_f, params.head, cfg)
     return logits, {**cache, "length": cache["length"] + 1}
+
+
+# ---------------------------------------------------------------------------
+# pipeline stages (the serverless LM executor, ``faas/lm_pipeline.py``)
+# ---------------------------------------------------------------------------
+#
+# A stage is a contiguous slice ``[spec.start, spec.stop)`` of the blocks,
+# with the embedding on the first stage and the final norm and unembedding
+# on the last.  Chained stages run the monolithic model's per-layer ops at
+# the same shapes in the same order (the same ``prefill_layers`` and
+# ``decode_layers``), and the wire carries activations as fp32, which
+# holds bf16 exactly, so the chain reproduces ``prefill``/``decode_step``
+# bit for bit on one device.
+
+
+def slice_stage_params(params: Transformer, spec) -> Dict[str, Any]:
+    """The parameters stage ``spec`` keeps resident: ``blocks`` (a
+    ``ModuleList`` slice sharing the model's modules, no copy) and, as the
+    stage needs them, ``embed``, ``ln_f`` and ``unembed``."""
+    out: Dict[str, Any] = {"blocks": params.blocks[spec.start:spec.stop]}
+    if spec.has_embed:
+        out["embed"] = params.embed
+    if spec.has_head:
+        out["ln_f"] = params.ln_f
+        if params.unembed is not None:
+            out["unembed"] = params.unembed
+        elif not spec.has_embed:
+            out["embed"] = params.embed  # a tied head needs the table
+    return out
+
+
+def stage_head(sp: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig
+               ) -> torch.Tensor:
+    """The head stage's :func:`final_logits`."""
+    table = sp["embed"] if cfg.tie_embeddings else sp["unembed"]
+    return final_logits(x, sp["ln_f"], table, cfg)
+
+
+def stage_prefill(sp: Dict[str, Any], spec, x_in: torch.Tensor,
+                  cfg: ModelConfig, max_len: int,
+                  layout: KVCacheLayout = KVCacheLayout(),
+                  ) -> Tuple[torch.Tensor, Cache]:
+    """One stage of ``prefill``.  ``x_in`` is the token ids [B, S] on the
+    embedding stage, the previous stage's hidden states [B, S, d]
+    otherwise.  Returns the hidden states [B, S, d] (the last position's
+    logits [B, 1, V] on the head stage) and the stage's resident cache."""
+    x = L.embed_tokens(sp["embed"], x_in) if spec.has_embed else x_in
+    x, cache = prefill_layers(sp["blocks"], x, cfg, max_len, layout,
+                              _dense_ffn(cfg))
+    if spec.has_head:
+        return stage_head(sp, x[:, -1:], cfg), cache
+    return x, cache
+
+
+def stage_decode_step(sp: Dict[str, Any], spec, x_in: torch.Tensor,
+                      cache: Cache, cfg: ModelConfig, *, attn_backend=None,
+                      ) -> Tuple[torch.Tensor, Cache]:
+    """One stage of ``decode_step``.  ``x_in`` is the new token [B, 1] on
+    the embedding stage, the previous stage's hidden state [B, 1, d]
+    otherwise.  Returns the hidden state (logits [B, 1, V] on the head
+    stage) and the stage's cache, its K and V written in place."""
+    attn = get_backend("attention", attn_backend)
+    x = L.embed_tokens(sp["embed"], x_in) if spec.has_embed else x_in
+    step = decode_positions(cache["length"], x.shape[0],
+                            int(cache["k"].shape[3]))
+    x = decode_layers(attn, sp["blocks"], x, cache["k"], cache["v"], cfg,
+                      step, _dense_ffn(cfg))
+    new_cache = {**cache, "length": cache["length"] + 1}
+    if spec.has_head:
+        return stage_head(sp, x, cfg), new_cache
+    return x, new_cache
 
 
 def cache_seq_axes(cache: Cache):

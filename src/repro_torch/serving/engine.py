@@ -1,15 +1,18 @@
 """Batched serving engine: prefill + greedy decode loop.
 
 Prompts are prefilled once, then decoded step by step with the family's
-cache (the KV cache of the dense family, the conv tails and SSM state of
-the ssm family), as in the reference's device engine.  The engine runs on
+cache (the KV cache of the dense family, the fp32 KV stacks of the moe
+family, the conv tails and SSM state of the ssm family), as in the
+reference's device engine.  The engine runs on
 a CUDA card unless constructed with ``device="cpu"``, and everything it
 launches runs on that device: the attention backend defaults to
 ``torch-splitk``, the hand-written split-KV kernel, and the generated
 tokens stay on the device until the loop ends.  ``generate_stream`` serves
 a stream of ragged requests with continuous batching
 (``serving/scheduler.py``), its decode step captured in a CUDA graph on the
-card.
+card.  ``engine="fabric"`` serves over the serverless pipeline instead
+(``faas/lm_pipeline.py``): the layer stack splits into stages whose
+activations travel the queue or object fabric, on the same device.
 """
 
 from __future__ import annotations
@@ -37,12 +40,16 @@ class GenerationResult:
     tokens: np.ndarray           # [B, max_new]
     prefill_logits: np.ndarray   # [B, vocab]: the last step's logits
     steps: int
+    # Set by the fabric engine: the full LmPipelineResult (billing stats,
+    # dual-clock makespans, wire volumes).  None on the device path.
+    fabric: Optional[Any] = None
 
 
 class ServingEngine:
     def __init__(self, cfg: ModelConfig, params: Optional[nn.Module] = None,
                  seed: int = 0, attn_backend=None, max_len_hint: int = 0,
-                 engine: str = "device", device="cuda"):
+                 engine: str = "device", device="cuda", pipeline_P: int = 2,
+                 pipeline_channel: str = "queue"):
         """``attn_backend``: decode-attention backend name or instance
         (``repro_torch.core.backends``).  ``None`` is the router's pick for
         the card, built for ``device``: ``torch-splitk`` (its plain version
@@ -52,10 +59,18 @@ class ServingEngine:
         type and ``max_len_hint``.
 
         ``params``: the family's module, a
-        :class:`repro_torch.models.transformer.Transformer` or a
+        :class:`repro_torch.models.transformer.Transformer`, a
+        :class:`repro_torch.models.moe.Moe` or a
         :class:`repro_torch.models.mamba2.Mamba2` (see each module's
         ``params_from_arrays``); ``None`` draws random bf16 weights on
         ``device`` from a ``torch.Generator`` seeded with ``seed``.
+
+        ``engine="fabric"`` serves over the serverless pipeline instead of
+        on the device alone: the layer stack splits into ``pipeline_P``
+        stages whose activations travel the ``pipeline_channel`` fabric
+        (:func:`repro_torch.faas.lm_pipeline.run_lm_pipeline`), every stage
+        computing on ``device``; results carry the billing and clock
+        telemetry in ``GenerationResult.fabric``.
 
         On ``"cuda"`` the matmuls accumulate in full fp32 as the reference
         does: the engine switches TF32 and reduced-precision bf16
@@ -68,16 +83,16 @@ class ServingEngine:
                 "available; pass device='cpu' to serve on the CPU")
         if self.device.type not in ("cuda", "cpu"):
             raise ValueError(f"ServingEngine runs on cuda or cpu, not {device!r}")
-        if engine == "fabric":
-            raise NotImplementedError(
-                "engine='fabric' (the LM pipeline over the serverless fabric) "
-                "is not in repro_torch yet: ROADMAP.md Queue 1 item 7")
-        if engine != "device":
+        if engine not in ("device", "fabric"):
             raise ValueError(f"unknown engine {engine!r}")
         if self.device.type == "cuda":
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
         self.cfg = cfg
+        self.engine = engine
+        self.pipeline_P = pipeline_P
+        self.pipeline_channel = pipeline_channel
+        self._stage_executors: Optional[list] = None
         if attn_backend in (None, "auto"):
             from repro_torch.serving.router import route_attention_backend
 
@@ -115,6 +130,8 @@ class ServingEngine:
                 "extra inputs belong to the vlm/encdec families: ROADMAP.md "
                 "Queue 1 items 4 and 5")
         B, S = prompts.shape
+        if self.engine == "fabric":
+            return self._generate_fabric(prompts, max_new_tokens)
         if max_len is None:
             max_len = S + max_new_tokens + (self.cfg.frontend_tokens or 0)
         batch: Dict[str, Any] = {
@@ -159,6 +176,10 @@ class ServingEngine:
         runs from a CUDA graph (:class:`RequestScheduler`).  ``mesh`` (the
         reference's sequence-sharded step) is ROADMAP.md Queue 1 item 9 and
         raises.
+
+        The fabric engine has no mid-batch admission point (stage workers
+        hold per-batch KV), so it serves each request alone through the
+        pipeline, in arrival order, behind the same API.
         """
         from repro_torch.serving.scheduler import RequestScheduler
 
@@ -167,6 +188,8 @@ class ServingEngine:
                 "generate_stream(mesh=...) (the sequence-sharded step) is not "
                 "in repro_torch yet: ROADMAP.md Queue 1 item 9")
         requests = list(requests)
+        if self.engine == "fabric":
+            return self._stream_fabric(requests)
         if max_request_len is None:
             max_request_len = max(
                 (np.asarray(r.prompt).reshape(-1).shape[0]
@@ -181,3 +204,44 @@ class ServingEngine:
             slot_capacity=layout.padded_len(max_request_len), layout=layout,
             device=self.device)
         return sched.run(requests)
+
+    def _stream_fabric(self, requests):
+        from repro_torch.serving.scheduler import RequestResult
+
+        results = []
+        for step, req in enumerate(sorted(requests,
+                                          key=lambda r: (r.arrival, r.rid))):
+            if req.extra:
+                raise NotImplementedError(
+                    "extra inputs belong to the vlm/encdec families: "
+                    "ROADMAP.md Queue 1 items 4 and 5")
+            prompt = np.asarray(req.prompt, np.int32).reshape(1, -1)
+            res = self._generate_fabric(prompt, req.max_new_tokens)
+            results.append(RequestResult(
+                rid=req.rid, tokens=res.tokens[0],
+                final_logits=res.prefill_logits[0],
+                prompt_len=prompt.shape[1],
+                admitted_step=step, finished_step=step))
+        return results
+
+    def _generate_fabric(self, prompts: np.ndarray,
+                         max_new_tokens: int) -> GenerationResult:
+        # Imported here: the pipeline pulls in the FaaS stack, which the
+        # device path does not need.
+        from repro_torch.faas.lm_pipeline import (
+            build_stage_executors,
+            run_lm_pipeline,
+        )
+
+        if self._stage_executors is None:
+            self._stage_executors = build_stage_executors(
+                self.cfg, self.params, self.pipeline_P,
+                attn_backend=self.attn_backend)
+        res = run_lm_pipeline(
+            self.cfg, prompts, self.params,
+            max_new_tokens=max_new_tokens, P=self.pipeline_P,
+            channel=self.pipeline_channel, attn_backend=self.attn_backend,
+            executors=self._stage_executors,
+        )
+        return GenerationResult(tokens=res.tokens, prefill_logits=res.logits,
+                                steps=max_new_tokens, fabric=res)

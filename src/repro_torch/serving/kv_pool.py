@@ -19,8 +19,9 @@ existing blocks.  This module turns that alignment into an allocator:
   KV, S_slot, D]``; ``scatter_token`` writes each slot's newly decoded K
   and V back to its physical page.
 
-Trees are nested dicts whose leaves are tensors, with ``None`` at the
-leaves a half does not hold (:func:`split_cache`).
+Trees are nested dicts and lists (the moe cache's ``stacks``) whose leaves
+are tensors, with ``None`` at the leaves a half does not hold
+(:func:`split_cache`).
 
 Two physical pages are reserved:
 
@@ -124,9 +125,12 @@ class BlockAllocator:
 def tree_map(fn: Callable, axes: Tree, *trees: Tree) -> Tree:
     """``fn(axis, *leaves)`` at every leaf of ``axes`` (a tree of
     ``Optional[int]`` from ``cache_seq_axes``), over trees of the same
-    dict structure."""
+    structure of dicts and lists."""
     if isinstance(axes, dict):
         return {k: tree_map(fn, axes[k], *(t[k] for t in trees)) for k in axes}
+    if isinstance(axes, list):
+        return [tree_map(fn, a, *(t[i] for t in trees))
+                for i, a in enumerate(axes)]
     return fn(axes, *trees)
 
 

@@ -16,7 +16,8 @@ stream instead, with admission control:
 * per-slot ``length``: the step runs the family's ``decode_step`` over all
   slots at once with one length per slot (``cache["length"]`` of shape
   ``[slots]``), where the reference maps a B = 1 step over the slots with
-  ``jax.vmap``; the decode kernel reads one length per batch row;
+  ``jax.vmap``; the decode kernel reads one length per batch row, and the
+  moe family's step routes each row as its own token group;
 * requests admitted mid-decode as slots free up, retired the step their
   token budget completes; admission order is FIFO over (arrival, rid).
 

@@ -1,6 +1,8 @@
 """The port's continuous batching (``repro_torch.serving.scheduler`` over
 ``serving.kv_pool``) against the JAX package's scheduler, on the CPU, at
-the ``reduced()`` sizes of internlm2-1.8b (dense) and mamba2-370m (ssm).
+the ``reduced()`` sizes of internlm2-1.8b (dense), deepseek-moe-16b (moe,
+at the default capacity factor of 1.25, each slot routed as its own token
+group) and mamba2-370m (ssm).
 
 Three contracts, for every backend, arrival order and the two-wave
 page-reuse stream:
@@ -49,6 +51,7 @@ from repro.core.backends import ChunkedLseAttention as RefChunked  # noqa: E402
 from repro.core.backends import PallasSplitKAttention  # noqa: E402
 from repro.kernels.decode_attention import ops as ref_decode_ops  # noqa: E402
 from repro.models import mamba2 as ref_mamba2  # noqa: E402
+from repro.models import moe as ref_moe  # noqa: E402
 from repro.models import transformer as ref_transformer  # noqa: E402
 from repro.models.registry import cache_specs  # noqa: E402
 from repro.models.registry import get_model as ref_get_model  # noqa: E402
@@ -64,7 +67,7 @@ from repro_torch.core.backends import (  # noqa: E402
     TorchSplitKAttention,
 )
 from repro_torch.kernels.decode_attention import ops as decode_ops  # noqa: E402
-from repro_torch.models import kvcache, mamba2, transformer  # noqa: E402
+from repro_torch.models import kvcache, mamba2, moe, transformer  # noqa: E402
 from repro_torch.models.registry import get_model  # noqa: E402
 from repro_torch.serving import router  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
@@ -84,9 +87,11 @@ TOL = dict(rtol=1e-4, atol=1e-4)
 KERNEL_TOL = dict(rtol=1e-5, atol=1e-5)
 
 FAMILIES = {"dense": ("internlm2-1.8b", ref_transformer, transformer),
+            "moe": ("deepseek-moe-16b", ref_moe, moe),
             "ssm": ("mamba2-370m", ref_mamba2, mamba2)}
 # the ssm family has no decode attention: one (unused) backend
 BACKENDS = {"dense": ("dense-ref", "chunked-lse", "torch-splitk"),
+            "moe": ("dense-ref", "torch-splitk"),
             "ssm": ("dense-ref",)}
 PORT_BACKEND = {
     "dense-ref": lambda: DenseRefAttention(),
@@ -113,8 +118,9 @@ def _family(fam):
     cfg, ref_cfg = get_config(arch).reduced(), ref_get_config(arch).reduced()
     params = jax.tree.map(lambda a: a.astype(jnp.float32),
                           ref_mod.init(jax.random.key(0), ref_cfg))
-    port = mod.params_from_arrays(cfg, jax.tree.map(np.asarray, params),
-                                  device="cpu", dtype=torch.float32)
+    port = mod.params_from_arrays(
+        cfg, jax.tree.map(lambda a: None if a is None else np.asarray(a), params),
+        device="cpu", dtype=torch.float32)
     return fam, cfg, ref_cfg, params, port
 
 
@@ -506,13 +512,17 @@ def _leaves(tree, path=()):
     if isinstance(tree, dict):
         for k, v in tree.items():
             yield from _leaves(v, path + (k,))
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, path + (i,))
     else:
         yield path, tree
 
 
 def test_cache_seq_axes_classify_like_the_reference(family):
     """The port's cache (its mamba2 conv cache a dict of x, B and C tails,
-    the reference's one leaf) classified key by key as the reference's
+    the reference's one leaf; the moe cache's list of KV stacks, as the
+    reference's) classified leaf by leaf as the reference's
     ``seq_axis_tree`` classifies its own cache."""
     fam, cfg, ref_cfg, _, port = family
     model = get_model(cfg, attn_backend="dense-ref")
@@ -525,7 +535,7 @@ def test_cache_seq_axes_classify_like_the_reference(family):
     for path, ax in _leaves(axes):
         want = ref_axes
         for k in path:
-            if not isinstance(want, dict):
+            if not isinstance(want, (dict, list)):
                 break
             want = want[k]
         assert ax == want, path
@@ -533,6 +543,9 @@ def test_cache_seq_axes_classify_like_the_reference(family):
     growing = sorted(p for p, a in seen if a == -2)
     if fam == "dense":
         assert growing == [("k",), ("v",)]
+    elif fam == "moe":
+        assert growing == [("stacks", i, kv) for i in (0, 1) for kv in "kv"]
+        assert len(ref_axes["stacks"]) == len(axes["stacks"]) == 2
     else:
         assert not growing and (("conv", "x"), None) in seen
     assert axes["length"] is None
@@ -583,9 +596,10 @@ def test_decode_backends_take_one_length_per_row(backend, dtype):
 
 
 def test_decode_step_with_per_row_lengths_matches_b1_steps(family):
-    """``transformer.decode_step`` (and mamba2's) over three rows at their
-    own lengths against each row's B = 1 step on its own cache: logits and
-    the written K and V within 1e-4, ``length`` advanced per row."""
+    """``transformer.decode_step`` (and moe's and mamba2's) over three rows
+    at their own lengths against each row's B = 1 step on its own cache:
+    logits and the written K and V within 1e-4, ``length`` advanced per
+    row.  The moe step routes each row as its own group."""
     fam, cfg, _, _, port = family
     model = get_model(cfg, attn_backend=TorchSplitKAttention(block_k=BLOCK_K,
                                                              device="cpu"))

@@ -35,7 +35,7 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention import ref as flash_ref
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan import ref as ssd_ref
-from repro_torch.models import mamba2, transformer
+from repro_torch.models import mamba2, moe, transformer
 from repro_torch.serving.engine import ServingEngine
 
 pytestmark = pytest.mark.gpu
@@ -600,11 +600,24 @@ def _cb_stream(cfg, seed, n=7):
                     arrival=int(rng.integers(0, 5))) for i in range(n)]
 
 
+_FAMILY_MODULES = {"dense": (transformer, "Transformer"),
+                   "moe": (moe, "Moe"), "ssm": (mamba2, "Mamba2")}
+
+
 def _cb_params(cuda, arch):
     cfg = get_config(arch).reduced()
     gen = torch.Generator(device=cuda).manual_seed(0)
-    mod = mamba2 if cfg.family == "ssm" else transformer
+    mod = _FAMILY_MODULES[cfg.family][0]
     return cfg, mod, mod.init(gen, cfg, dtype=torch.float32)
+
+
+def _on_cpu(cfg, params):
+    """A CPU copy of card params, leaf by leaf."""
+    mod, cls = _FAMILY_MODULES[cfg.family]
+    out = getattr(mod, cls)(cfg, dtype=torch.float32, device="cpu")
+    for dst, src in zip(out.parameters(), params.parameters()):
+        dst.copy_(src.cpu())
+    return out
 
 
 def _kernel_events(fn, name: str) -> int:
@@ -622,7 +635,8 @@ def _kernel_events(fn, name: str) -> int:
                and name in e.key)
 
 
-@pytest.mark.parametrize("arch", ["internlm2-1.8b", "mamba2-370m"])
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "deepseek-moe-16b",
+                                  "mamba2-370m"])
 def test_graph_replay_equals_the_eager_step_and_captures_once(cuda, arch):
     """One stream churning through 3 slots, graphed and eager: the same
     tokens and final logits bit for bit; the graph is captured once over
@@ -692,16 +706,14 @@ def test_graph_keeps_its_scratch_when_stream_handles_recur(cuda):
         assert np.array_equal(got[w.rid].final_logits, w.final_logits), w.rid
 
 
-@pytest.mark.parametrize("arch", ["internlm2-1.8b", "mamba2-370m"])
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "deepseek-moe-16b",
+                                  "mamba2-370m"])
 def test_engine_stream_on_the_card_gives_the_cpu_tokens(cuda, arch):
     """``generate_stream`` on the card (graphed, through the kernel) and on
     the CPU (eager, through its plain version), fp32: the same tokens,
     final logits within 1e-4."""
     cfg, mod, params = _cb_params(cuda, arch)
-    on_cpu = (mod.Mamba2 if cfg.family == "ssm" else mod.Transformer)(
-        cfg, dtype=torch.float32, device="cpu")
-    for dst, src in zip(on_cpu.parameters(), params.parameters()):
-        dst.copy_(src.cpu())
+    on_cpu = _on_cpu(cfg, params)
     reqs = _cb_stream(cfg, 5)
     got = {r.rid: r for r in ServingEngine(cfg, params=params).generate_stream(
         reqs, num_slots=3)}
@@ -711,3 +723,69 @@ def test_engine_stream_on_the_card_gives_the_cpu_tokens(cuda, arch):
         np.testing.assert_array_equal(got[w.rid].tokens, w.tokens)
         np.testing.assert_allclose(got[w.rid].final_logits, w.final_logits,
                                    rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the moe family and the LM pipeline on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("groups", [1, 24])
+def test_moe_ffn_gives_the_same_bits_twice(cuda, dtype, groups):
+    """The combine adds in a fixed order with no atomics: two runs of
+    ``moe_ffn`` (with drops at one group, one group a row at 24) give the
+    same bits, and agree with the CPU's run within 1e-5 in fp32."""
+    cfg = get_config("deepseek-moe-16b").reduced()
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    params = moe.init(gen, cfg, dtype=dtype)
+    blk = params.moe_blocks[0].moe
+    x = torch.randn((24, 1, cfg.d_model), generator=gen, device=cuda).to(dtype)
+    a, ma = moe.moe_ffn(blk, x, cfg, dp_groups=groups)
+    b, _ = moe.moe_ffn(blk, x, cfg, dp_groups=groups)
+    assert torch.equal(a, b)
+    if dtype == torch.float32:
+        cpu = _on_cpu(cfg, params).moe_blocks[0].moe
+        want, mw = moe.moe_ffn(cpu, x.cpu(), cfg, dp_groups=groups)
+        np.testing.assert_allclose(a.cpu().numpy(), want.numpy(), **TOL)
+        assert float(ma["drop_frac"]) == pytest.approx(float(mw["drop_frac"]))
+
+
+def test_bf16_q_over_an_fp32_cache_launches_the_fp32_kernel(cuda):
+    """The moe decode's shape (G 1, D 128): a bf16 ``q`` over the fp32
+    cache is widened, the fp32 kernel runs once, and the output is that of
+    the all-fp32 call rounded to bf16, bit for bit."""
+    q, k, v = _decode_operands(cuda, 8, 16, 16, 640, 128, torch.float32, 3)
+    qb = q.to(torch.bfloat16)[:, None]
+    lens = torch.tensor([0, 1, 513, 544, 640, 64, 65, 300], dtype=torch.int32,
+                        device=cuda)
+    be = TorchSplitKAttention()
+    n0 = decode_ops.LAUNCHES["decode_attention"]
+    got = be.decode(qb, k, v, lens)
+    assert decode_ops.LAUNCHES["decode_attention"] == n0 + 1
+    want = be.decode(qb.float(), k, v, lens)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, want.to(torch.bfloat16))
+
+
+def test_reduced_pipeline_on_the_card_gives_the_cpu_tokens(cuda):
+    """deepseek-moe-16b reduced, fp32, P 2 on the queue: the pipeline on the
+    card equals the card's device engine bit for bit, and picks the CPU
+    pipeline's tokens (logits within 1e-4) with the same billed counts."""
+    from repro_torch.faas.lm_pipeline import run_lm_pipeline
+
+    cfg, _, params = _cb_params(cuda, "deepseek-moe-16b")
+    prompts = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 9))
+    n0 = decode_ops.LAUNCHES["decode_attention"]
+    got = run_lm_pipeline(cfg, prompts, params, max_new_tokens=4, P=2)
+    assert decode_ops.LAUNCHES["decode_attention"] == n0 + cfg.n_layers * 4
+    engine = ServingEngine(cfg, params=params).generate(prompts, 4)
+    np.testing.assert_array_equal(got.tokens, engine.tokens)
+    assert np.array_equal(got.logits, engine.prefill_logits)
+    want = run_lm_pipeline(cfg, prompts, _on_cpu(cfg, params),
+                           max_new_tokens=4, P=2)
+    np.testing.assert_array_equal(got.tokens, want.tokens)
+    np.testing.assert_allclose(got.logits, want.logits, rtol=1e-4, atol=1e-4)
+    assert got.stats.publish_units == want.stats.publish_units
+    assert got.raw_exchange_bytes == want.raw_exchange_bytes

@@ -206,7 +206,7 @@ def test_registry_router_and_layout_answer_as_the_reference(case, monkeypatch):
     assert eng.attn_backend.name == "dense-ref"
     assert eng.cache_layout(77).block_k == ref_eng.cache_layout(77).block_k
     assert eng.cache_layout(77).padded_len(77) == ref_eng.cache_layout(77).padded_len(77)
-    for fam in ("moe", "hybrid", "encdec", "vlm"):
+    for fam in ("hybrid", "encdec", "vlm"):
         with pytest.raises(NotImplementedError, match="item"):
             get_model(dataclasses.replace(cfg, family=fam))
 

@@ -106,8 +106,10 @@ def test_configs_match_the_reference():
         assert dataclasses.asdict(port.reduced()) == dataclasses.asdict(ref.reduced())
         assert port.padded_vocab() == ref.padded_vocab()
         assert port.param_count() == ref.param_count()
+    assert dataclasses.asdict(get_config("deepseek-moe-16b")) == \
+        dataclasses.asdict(ref_get_config("deepseek-moe-16b"))
     with pytest.raises(NotImplementedError, match="item 5"):
-        get_config("deepseek-moe-16b")
+        get_config("zamba2-7b")
     with pytest.raises(KeyError):
         get_config("gpt-9")
 
@@ -264,11 +266,14 @@ def test_registry_and_engine_options():
     assert eng.params.embed.dtype == torch.bfloat16
     with pytest.raises(NotImplementedError, match="item 9"):
         eng.generate_stream([], mesh=object())
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ServingEngine(cfg, device="cpu", engine="fabric")
-    moe = dataclasses.replace(cfg, family="moe")
+    fabric = ServingEngine(cfg, device="cpu", engine="fabric", pipeline_P=2)
+    assert (fabric.engine, fabric.pipeline_P, fabric.pipeline_channel) == (
+        "fabric", 2, "queue")
+    with pytest.raises(ValueError, match="unknown engine"):
+        ServingEngine(cfg, device="cpu", engine="bogus")
+    hybrid = dataclasses.replace(cfg, family="hybrid")
     with pytest.raises(NotImplementedError, match="item 5"):
-        get_model(moe)
+        get_model(hybrid)
 
 
 def test_cuda_defaults_raise_without_a_card(monkeypatch):
