@@ -126,7 +126,35 @@ Run from the root of a checkout.  Phases, each printed as it ends:
    graphed = eager bit for bit and each request bit for bit itself alone;
    and a depth cut to 4 layers (1 dense, 3 moe) in fp32 at full width,
    whose tokens on the card are the CPU's (logits within 1e-4);
-10. one JSON line with each kernel's time, launches on its path, bound,
+10-12. zamba2-7b (hybrid: 81 mamba2 blocks and one shared attention block
+   at 14 sites, d_head 112), seamless-m4t-medium (encdec: 12 encoder and
+   12 decoder layers over 1024 source frames) and internvl2-2b (vlm: 256
+   image embeddings before the prompt) at full width, bf16 params drawn
+   on the card from seed 0, frames and embeddings normal from the seed
+   (``family_phase``, ``FAMILY_PHASES``): ``generate`` for 8 prompts of
+   512, 128 and 256 with 32 new tokens, its decode-kernel launches (14,
+   24 = 12 self + 12 cross, and 24 a step), prefill and step times,
+   tokens/s, peak memory and a profile of 4 steps; the decode kernel at
+   the path's shapes held to its plain version in bf16 and fp32 at every
+   split's edges (zamba2's sites B 8, H 32, KV 32, D 112, S 640, timed in
+   both dtypes; seamless's self cache, and its cross cache B 8, H 16, KV
+   16, D 64, S 1024, timed in bf16; internvl2's at phase 4's shape), timed
+   beside its bound and SDPA; teacher-forced on the 32 tokens against the
+   kernel's plain version, every kernel call held to the plain version on
+   its own inputs (2e-2), the plain version stepping from the kernel run's
+   cache (pinned) and from its own (free), ``dense-ref`` free beside them:
+   seamless's held to the dense gate (<= 1% of a step's logits outside
+   3e-2, >= 90% of next tokens equal), zamba2's and internvl2's pinned
+   next tokens to >= 90% and their logits reported; a stream of 6 requests
+   (each with its frontend input) through 4 slots, graphed = eager bit for
+   bit and each request bit for bit itself alone; internvl2's pipeline at
+   P 4 with the embeddings as ``extra`` (batch 4, prompts of 128, 8 new)
+   on the queue and the object channel with both clocks, bit for bit the
+   device engine's; fp32 copies at full depth, ``torch-splitk`` against
+   ``dense-ref`` (identical tokens, logits 1e-4); and an fp32 depth cut at
+   full width (7 layers, 2 sites; 2 + 2 layers; 2 layers), the card
+   against the CPU (B 2, prompt 64, 8 new: identical tokens, 1e-4);
+13. one JSON line with each kernel's time, launches on its path, bound,
    plain-version time and one library call's time (the BSR kernels' at
    layer 2, and at each timed layer under ``by_layer``; the decode
    kernel's launches on the graphed stream, counted in the profiler's
@@ -134,7 +162,11 @@ Run from the root of a checkout.  Phases, each printed as it ends:
    ``stream``; its launches on phase 8's pipeline run under
    ``pipeline_launches`` and in phase 9's ``generate`` under
    ``moe_generate_launches``, its times at deepseek's shape under
-   ``moe_decode_shape``).
+   ``moe_decode_shape``; phases 10-12's under ``hybrid_generate_launches``,
+   ``encdec_generate_launches`` and ``vlm_generate_launches``, their times
+   at the path shapes under ``hybrid_decode_shapes`` (D 112) and
+   ``encdec_decode_shapes`` (the cross cache), and each phase's numbers
+   under ``hybrid``, ``encdec`` and ``vlm``).
 
 Times are medians of single calls between two CUDA events; below ~0.1 ms
 that is mostly the wrapper's host time, so the decode kernel at the serving
@@ -247,6 +279,32 @@ MOE_ARCH, MOE_LENS = "deepseek-moe-16b", (0, 1, 513, 544)
 MOE_CUT, MOE_CPU = 4, (2, 64, 4)
 MOE_PIPE = (4, 128, 8)
 MOE_STREAM = (6, 4, (32, 128), (4, 16))
+# zamba2-7b, seamless-m4t-medium and internvl2-2b at full width (phases
+# 10-12): each one's prompt length for generate (batch SERVE_BATCH, NEW
+# new tokens), the fp32 depth cut held to the CPU (config fields, run at
+# FAMILY_CPU's batch, prompt and new tokens), which of the decode kernel's
+# path shapes are timed in which dtypes (all are held to the plain
+# version in bf16 and fp32), and internvl2-2b's pipeline (batch, prompt,
+# new tokens); the stream of each: requests, slots, prompt lengths, budgets
+# ``logit_gate``: whether the teacher-forced logits are held to the dense
+# gate (``teacher_forced``); where not, they are reported and the next
+# tokens gated.  zamba2's 81 layers and recurrent state carry one step's
+# attention rounding past 3e-2 in 14% of the logits, internvl2's 256 image
+# rows (normal, 50x the token embeddings' scale) in 1.1%, and in both two
+# implementations without the kernel part further than the kernel and its
+# plain version (PERF.md §6)
+FAMILY_PHASES = {
+    "zamba2-7b": dict(prompt=512, cut=dict(n_layers=7), logit_gate=False,
+                      timed={"self": (torch.bfloat16, torch.float32)}),
+    "seamless-m4t-medium": dict(prompt=128,
+                                cut=dict(n_layers=2, n_encoder_layers=2),
+                                logit_gate=True,
+                                timed={"cross": (torch.bfloat16,)}),
+    "internvl2-2b": dict(prompt=256, cut=dict(n_layers=2), logit_gate=False,
+                         timed={}, pipeline=(4, 128, 8)),
+}
+FAMILY_CPU = (2, 64, 8)
+FAMILY_STREAM = (6, 4, (32, 128), (4, 16))
 # builds of a kernel source with one piece of text replaced, each built
 # beside the others at the start: name -> (source, old, new).  The BSR
 # sweeps time a one-stage ring and a walk without the non-finite test; the
@@ -1192,18 +1250,24 @@ def device_rows(prof):
 
 
 def profile_decode(engine, prompts, step_ms: float, steps: int = 4,
-                   kernel: str = "decode_attention") -> None:
-    """Device time by kernel over ``steps`` decode steps after a prefill,
-    from ``torch.profiler``; says so where the profiler saw no device
-    time.  ``step_ms`` is the unprofiled step time, for the busy share;
-    ``kernel`` names the hand-written kernel whose share is reported
-    (``None`` where the step launches none)."""
+                   kernel: str = "decode_attention", extra=None):
+    """Device time by kernel over ``steps`` decode steps after a prefill
+    (of ``prompts`` and the frontend's ``extra``), from ``torch.profiler``;
+    says so where the profiler saw no device time.  ``step_ms`` is the
+    unprofiled step time, for the busy share; ``kernel`` names the
+    hand-written kernel whose share is reported (``None`` where the step
+    launches none).  Returns the step's device ms, kernels and busy share,
+    or None where not measured."""
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.serving.engine import extra_tensors
+
     dev = engine.device
-    batch = {"tokens": torch.as_tensor(prompts, dtype=torch.int64, device=dev)}
-    logits, cache = engine.model.prefill(engine.params, batch,
-                                         prompts.shape[1] + NEW)
+    batch = {"tokens": torch.as_tensor(prompts, dtype=torch.int64, device=dev),
+             **extra_tensors(extra, dev)}
+    logits, cache = engine.model.prefill(
+        engine.params, batch,
+        prompts.shape[1] + NEW + (engine.cfg.frontend_tokens or 0))
     token = logits[:, -1:].argmax(dim=-1)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1217,7 +1281,7 @@ def profile_decode(engine, prompts, step_ms: float, steps: int = 4,
     total = sum(us for _, us, _ in rows) / 1e3 / steps
     if total <= 0:
         log("[profile] no device time in the profiler's trace: not measured")
-        return
+        return None
     n_kernels = sum(n for _, _, n in rows) / steps
     if kernel is None:
         share = "no hand-written kernel in the step"
@@ -1234,6 +1298,7 @@ def profile_decode(engine, prompts, step_ms: float, steps: int = 4,
     for key, us, n in rows[:10]:
         log(f"  {us / 1e3 / steps:9.4f} ms/step  {n / steps:6.1f}"
             f" x/step  {key[:80]}")
+    return dict(device_ms=total, kernels=n_kernels, busy=total / step_ms)
 
 
 class PlainSplitKOnCard:
@@ -2620,6 +2685,537 @@ def moe_phase(dev, peaks, card):
 
 
 # ---------------------------------------------------------------------------
+# 10-12. zamba2-7b (hybrid), seamless-m4t-medium (encdec), internvl2-2b (vlm)
+# ---------------------------------------------------------------------------
+
+
+def frontend(cfg, B: int, seed: int):
+    """The stub frontend's input for ``B`` rows, normal from ``seed``:
+    ``{"extra_embeds"}`` (vlm), ``{"frames"}`` (encdec), else None."""
+    from repro_torch.models.registry import FRONTEND_INPUTS
+
+    key = FRONTEND_INPUTS.get(cfg.family)
+    if key is None:
+        return None
+    rng = np.random.default_rng(seed)
+    return {key: rng.standard_normal((B, cfg.frontend_tokens, cfg.d_model))
+            .astype(np.float32)}
+
+
+def launches_a_step(cfg) -> int:
+    """Decode-kernel launches of one decode step: one a shared-attention
+    site (hybrid), two a decoder layer (encdec: self and cross), else one a
+    layer."""
+    from repro_torch.models import hybrid
+
+    if cfg.family == "hybrid":
+        return hybrid.n_shared_sites(cfg)
+    return cfg.n_layers * (2 if cfg.family == "encdec" else 1)
+
+
+def path_kernel(dev, peaks, card, tag, shape, L, dtypes, timed):
+    """The decode kernel at one of a path's shapes ``(B, H, KV, S, D)``:
+    held to its plain version in each of ``dtypes`` at cache lengths 0, 1,
+    each split's first and last key +-1, ``L`` and the capacity, then (the
+    dtypes in ``timed``) timed at ``L``: single calls, 50 back to back,
+    from a CUDA graph and by profiler device time, beside the plain
+    version, SDPA and the bound.  Returns ({dtype: timing}, max error)."""
+    from repro_torch.kernels.decode_attention import ops, ref
+
+    B, H, KV, S, D = shape
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    out_t, worst = {}, 0.0
+    for dtype in dtypes:
+        q, k, v = [torch.randn(s, generator=gen, device=dev, dtype=dtype)
+                   for s in ((B, H, D), (B, KV, S, D), (B, KV, S, D))]
+        n_split, split_keys = ops.plan_for(q, k)
+        lens = {0, 1, L, S}
+        for j in range(n_split):
+            for e in (j * split_keys, min((j + 1) * split_keys, S) - 1):
+                lens.update((e - 1, e, e + 1))
+        tol = DECODE_TOL[dtype]
+        errs = []
+        for n in sorted(x for x in lens if 0 <= x <= S):
+            lt = torch.tensor([n], dtype=torch.int32, device=dev)
+            out, lse = ops.decode_mha(q, k, v, lt)
+            want, want_lse = ref.decode_attention_ref(q, k, v, lt)
+            torch.testing.assert_close(out.float(), want.float(), **tol,
+                                       msg=lambda m: f"{tag} L={n}: {m}")
+            torch.testing.assert_close(lse, want_lse, **tol,
+                                       msg=lambda m: f"{tag} L={n} lse: {m}")
+            errs.append((out.float() - want.float()).abs().max().item())
+        worst = max(worst, max(errs))
+        log(f"  decode {tag} B{B} H{H} KV{KV} S{S} D{D} {dtype}, {n_split} "
+            f"splits of {split_keys} keys, {len(errs)} cache lengths (0, 1, "
+            f"each split's edges +-1, {L}, {S}): max_abs_err out {max(errs):.3e}"
+            f" (tolerance rtol=atol={tol['atol']})")
+        if dtype not in timed:
+            continue
+        lt = torch.tensor([L], dtype=torch.int32, device=dev)
+        kernel = lambda: ops.decode_mha(q, k, v, lt)  # noqa: E731
+        library = sdpa_call(q, k, v, L)
+        lib_err = (library().float() - kernel()[0].float()).abs().max().item()
+        ms = time_ms(kernel, reps=20)
+        plain_ms = time_ms(lambda: ref.decode_attention_ref(q, k, v, lt),
+                           reps=20)
+        lib_ms = time_ms(library, reps=20)
+        extra = back_to_back("decode_attention", f"{tag} {dtype} cache_len {L}",
+                             kernel, library)
+        b_ms, b_by, nbytes, flops = decode_bound(B, H, KV, L, D, dtype, peaks)
+        log(f"[time] decode_attention {tag} B{B} H{H} KV{KV} S{S} D{D} {dtype} "
+            f"cache_len {L}: kernel {ms:.4f} ms, {extra['graph_ms']:.4f} from a "
+            f"CUDA graph, plain {plain_ms:.4f} ms, library (SDPA) {lib_ms:.4f} "
+            f"ms, {extra['library_graph_ms']:.4f} from a CUDA graph (max "
+            f"|library - kernel| {lib_err:.3e}), bound {b_ms:.4f} ms by {b_by} "
+            f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP), on {card}")
+        out_t[str(dtype).split(".")[-1]] = dict(
+            shape=[B, H, KV, S, D], cache_len=L, ms=ms, plain_ms=plain_ms,
+            library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, **extra)
+        del q, k, v
+    torch.cuda.empty_cache()
+    return out_t, worst
+
+
+def clone_tree(tree):
+    """A copy of a cache tree (dicts and lists of tensors)."""
+    if isinstance(tree, dict):
+        return {k: clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [clone_tree(v) for v in tree]
+    return tree.clone()
+
+
+class CheckedKernel:
+    """The kernel backend, each call also run through the kernel's plain
+    version on the same inputs and held to it (``DECODE_TOL``): the
+    kernel at the model's own q, K and V.  Returns the kernel's output."""
+
+    def __init__(self, kernel):
+        self.kernel, self.plain = kernel, PlainSplitKOnCard()
+        self.name, self.calls, self.worst = kernel.name, 0, 0.0
+
+    def cache_layout(self, max_len):
+        return self.kernel.cache_layout(max_len)
+
+    def decode(self, q, k_cache, v_cache, cache_len):
+        out = self.kernel.decode(q, k_cache, v_cache, cache_len)
+        want = self.plain.decode(q, k_cache, v_cache, cache_len)
+        torch.testing.assert_close(out.float(), want.float(),
+                                   **DECODE_TOL[q.dtype])
+        self.worst = max(self.worst, (out.float() - want.float()).abs().max().item())
+        self.calls += 1
+        return out
+
+
+def teacher_forced(engine, batch, res, max_len: int, card,
+                   logit_gate: bool) -> dict:
+    """Teacher-forced on ``res``'s tokens in bf16, the kernel against the
+    same params through its plain version on the card
+    (``PlainSplitKOnCard``).  Every kernel call of the run is held to the
+    plain version on its own inputs (``CheckedKernel``).  Pinned: each step
+    of the plain version starts from a copy of the kernel run's cache, so
+    that the two differ by one step's attention numerics; free: the plain
+    version runs on its own cache, so differences accumulate over the
+    steps.  Both are held to the dense gate (at most
+    ``LOGITS_OUTSIDE_MAX`` of a step's logits outside 3e-2, ``AGREE_MIN``
+    of the greedy next tokens equal) where ``logit_gate``; otherwise the
+    pinned run's next tokens are held to ``AGREE_MIN`` and the rest is
+    reported.  Beside them ``dense-ref`` runs free against the plain
+    version (two implementations without the kernel, ``dense-ref`` rounding
+    p to bf16 as the reference's oracle does): how far the model itself
+    carries a rounding.  The kernel's replay must pick generate's tokens
+    again."""
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = engine.cfg
+    checked = CheckedKernel(engine.attn_backend)
+    engine = ServingEngine(cfg, params=engine.params, attn_backend=checked)
+    plain = ServingEngine(cfg, params=engine.params,
+                          attn_backend=PlainSplitKOnCard())
+    dense = ServingEngine(cfg, params=engine.params, attn_backend="dense-ref")
+    lk, ck = engine.model.prefill(engine.params, batch, max_len)
+    lp, cp = plain.model.prefill(plain.params, batch, max_len)
+    ld, cd = dense.model.prefill(dense.params, batch, max_len)
+    check(torch.equal(lk, lp) and torch.equal(lk, ld),
+          "prefill logits differ under the plain backends")
+    toks = torch.as_tensor(res.tokens, dtype=torch.int64, device=lk.device)
+    new = toks.shape[1]
+    pairs = ("pinned", "free", "dense-ref free")
+    st = {p: dict(outside=0.0, rel=0.0, max_abs=0.0, agree=0) for p in pairs}
+    replay = 0
+    for t in range(new):
+        tok = toks[:, t:t + 1]
+        before = clone_tree(ck)
+        lk, ck = engine.model.decode_step(engine.params, tok, ck)
+        lpin, _ = plain.model.decode_step(plain.params, tok, before)
+        del before
+        lp, cp = plain.model.decode_step(plain.params, tok, cp)
+        ld, cd = dense.model.decode_step(dense.params, tok, cd)
+        for name, (a, b) in zip(pairs, ((lk, lpin), (lk, lp), (ld, lp))):
+            d = (a - b).abs()
+            bound = LOGITS_TOL["atol"] + LOGITS_TOL["rtol"] * b.abs()
+            s_ = st[name]
+            s_["outside"] = max(s_["outside"], (d > bound).float().mean().item())
+            s_["rel"] = max(s_["rel"], (d.norm() / b.norm()).item())
+            s_["max_abs"] = max(s_["max_abs"], d.max().item())
+        if t + 1 < new:
+            nxt = toks[:, t + 1]
+            replay += int((lk[:, 0].argmax(-1) == nxt).sum())
+            for name, lo in zip(pairs, (lpin, lp, ld)):
+                st[name]["agree"] += int((lo[:, 0].argmax(-1) == nxt).sum())
+    n_next = toks.shape[0] * (new - 1)
+    log(f"[{cfg.family}] bf16 teacher-forced: {checked.calls} kernel calls, "
+        f"each held to the plain version on its own inputs: max_abs_err "
+        f"{checked.worst:.3e} (tolerance rtol=atol="
+        f"{DECODE_TOL[torch.bfloat16]['atol']})")
+    for name in pairs:
+        s_ = st[name]
+        gated = logit_gate and name != "dense-ref free"
+        what = ("the kernel vs its plain version" if name != "dense-ref free"
+                else "dense-ref vs the plain version (no kernel)")
+        log(f"[{cfg.family}] bf16 teacher-forced, {new} steps, {name}: {what}: "
+            f"worst step {s_['outside']:.4%} of the logits outside rtol=atol="
+            f"3e-2 (max |diff| {s_['max_abs']:.3e}, |diff|_2/|logits|_2 "
+            f"{s_['rel']:.3e}); greedy next tokens equal {s_['agree']} of "
+            f"{n_next} ({s_['agree'] / n_next:.2%})"
+            + (f"; gate <= {LOGITS_OUTSIDE_MAX:.0%} outside, >= "
+               f"{AGREE_MIN:.0%} equal" if gated
+               else f"; gate >= {AGREE_MIN:.0%} equal" if name == "pinned"
+               else "; reported")
+            + f", on {card}")
+    check(replay == n_next, f"the kernel's teacher-forced replay picked "
+                            f"{replay} of {n_next} tokens again")
+    check(np.array_equal(lk[:, 0].cpu().numpy(), res.prefill_logits),
+          "replayed last-step logits differ from generate's")
+    for name in ("pinned", "free") if logit_gate else ("pinned",):
+        check(not logit_gate or st[name]["outside"] <= LOGITS_OUTSIDE_MAX,
+              f"{name}: {st[name]['outside']:.3%} of a step's logits differ "
+              f"from the plain version's by more than rtol=atol=3e-2")
+        check(st[name]["agree"] >= AGREE_MIN * n_next,
+              f"{name}: the plain version's greedy next tokens agree on only "
+              f"{st[name]['agree']} of {n_next}")
+    out = {name: dict(outside=v["outside"], rel_l2=v["rel"],
+                      agree=v["agree"] / n_next) for name, v in st.items()}
+    out["kernel_calls"], out["kernel_max_err"] = checked.calls, checked.worst
+    return out
+
+
+def family_stream(engine, dev, card) -> dict:
+    """``FAMILY_STREAM`` through the scheduler's graphed step, each request
+    with its frontend input: graph = eager bit for bit (the eager stream's
+    decode launches counted), each request bit for bit itself alone."""
+    import dataclasses
+
+    from repro_torch.serving.scheduler import RequestScheduler
+
+    n, slots, prompts, budgets = FAMILY_STREAM
+    cfg = engine.cfg
+    reqs = cb_requests(n, prompts, budgets, 4, cfg.vocab_size, SEED)
+    for r in reqs:
+        r.extra = frontend(cfg, 1, SEED + 10 + r.rid)
+    need = prompts[1] + budgets[1] + (cfg.frontend_tokens or 0)
+    layout = engine.cache_layout(need)
+    cap = layout.padded_len(need)
+
+    def scheduler(graph):
+        return RequestScheduler(engine.model, engine.params, slots, cap,
+                                layout=layout, device=dev, graph=graph)
+
+    t = time.perf_counter()
+    sched = scheduler(True)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t
+    res, wall, ms, _ = drive(sched, reqs)
+    steps, tokens = sched.steps_run, sched.tokens_emitted
+    eager = scheduler(False)
+    reset_counts()
+    res_e, wall_e, ms_e, _ = drive(eager, reqs)
+    counts = read_counts()
+    want = only(counts, decode_attention=launches_a_step(cfg) * eager.steps_run)
+    check(counts == want, f"{cfg.name} eager stream launches {counts}, want {want}")
+    same_results(res, res_e, f"{cfg.name} graph vs eager")
+    for r in reqs:
+        solo = {x.rid: x for x in sched.run([dataclasses.replace(r, arrival=0)])}
+        same_results({r.rid: res[r.rid]}, solo, f"{cfg.name} stream vs solo")
+    check(sched.captures == 1, f"{sched.captures} captures")
+    log(f"[stream] {cfg.name}: {n} requests (prompts "
+        f"{[len(r.prompt) for r in reqs]}, budgets "
+        f"{[r.max_new_tokens for r in reqs]}"
+        + (f", each with its {cfg.frontend_tokens} frontend rows" if reqs[0].extra
+           else "") + f") through {slots} slots of capacity {cap}: {steps} "
+        f"steps, {tokens} tokens; scheduler built and captured in "
+        f"{t_build:.2f} s; graph = eager bit for bit "
+        f"({counts['decode_attention']} = {launches_a_step(cfg)} x "
+        f"{eager.steps_run} decode kernels eager); each request bit for bit "
+        f"itself served alone; ms a step graph {statistics.median(ms):.3f}, "
+        f"eager {statistics.median(ms_e):.3f}; stream wall graph {wall:.3f} s "
+        f"({tokens / wall:.1f} tokens/s), eager {wall_e:.3f} s "
+        f"({tokens / wall_e:.1f} tokens/s); captures {sched.captures}, on {card}")
+    return dict(steps=steps, tokens=tokens, step_ms_graph=statistics.median(ms),
+                step_ms_eager=statistics.median(ms_e), wall_s_graph=wall,
+                wall_s_eager=wall_e)
+
+
+def vlm_pipeline(engine, prompts, embeds, card) -> tuple:
+    """``run_lm_pipeline`` with the image embeddings as ``extra`` at P
+    ``PIPE_P`` (``FAMILY_PHASES``' pipeline batch, prompt and new tokens)
+    on the queue and the object channel, each with both clocks: tokens and
+    logits bit for bit the device engine's, the decode kernel once a layer
+    a step, every billed count equal between the clocks.  Returns (the
+    decode kernel's launches in one run, the numbers)."""
+    from repro_torch.faas.lm_pipeline import build_stage_executors
+
+    cfg = engine.cfg
+    B, S, new = FAMILY_PHASES[cfg.name]["pipeline"]
+    short, emb = prompts[:B, :S], embeds[:B]
+    want = engine.generate(short, max_new_tokens=new,
+                           extra={"extra_embeds": emb})
+    executors = build_stage_executors(cfg, engine.params, PIPE_P,
+                                      attn_backend=engine.attn_backend)
+    spans: list = []
+    timed_stages(executors, spans)
+    summary = {}
+    for ch in ("queue", "object"):
+        runs = {}
+        for overlap in (True, False):
+            res, counts, wall, stage = pipeline_run(
+                cfg, short, engine.params, executors, spans, new, P=PIPE_P,
+                channel=ch, overlap=overlap, extra=emb)
+            want_counts = only(counts, decode_attention=cfg.n_layers * new)
+            check(counts == want_counts, f"vlm pipeline {ch}: launches {counts}")
+            same_generation(res, want, f"vlm pipeline {ch} vs the device engine")
+            check(int(executors[0].cache["length"]) == cfg.frontend_tokens + S + new,
+                  "the first stage's cache does not hold the image prefix")
+            clock = "overlap" if overlap else "phased"
+            log(pipeline_line(f"{cfg.name}, {ch}, {clock} clock, batch {B}, "
+                              f"prompts of {S} after {cfg.frontend_tokens} image "
+                              f"embeddings, {new} new", res, wall, stage, card))
+            runs[overlap] = res
+            summary[f"{ch}_{clock}"] = dict(
+                wall_s=wall, stage_compute_s=stage, makespan_s=res.makespan,
+                cost_usd=res.cost.total, raw_bytes=res.raw_exchange_bytes)
+        a, b = runs[True], runs[False]
+        for f in ("P", "memory_mb", "publish_units", "bytes_sns_to_sqs",
+                  "sqs_api_calls", "s3_puts", "s3_gets", "s3_lists"):
+            check(getattr(a.stats, f) == getattr(b.stats, f), f"{ch}: {f}")
+        check(a.raw_exchange_bytes == b.raw_exchange_bytes
+              and a.makespan <= b.makespan + 1e-12, f"{ch}: clocks differ")
+    log(f"[pipeline] {cfg.name}: every run bit for bit the device engine's, "
+        f"{cfg.n_layers} x {new} decode kernels a run, every billed count equal "
+        f"between the clocks; stages of {[ex.spec.n_layers for ex in executors]}"
+        f" layers, the embeddings on stage 0")
+    del executors
+    return cfg.n_layers * new, summary
+
+
+def family_phase(dev, peaks, card, arch):
+    """One of phases 10-12 (``FAMILY_PHASES[arch]``): the model at full
+    width (bf16 params drawn on the card from seed 0, ``torch-splitk``),
+    ``generate`` for 8 prompts (and frontend inputs) with 32 new tokens and
+    its launches, times, peak memory and profile; the decode kernel at the
+    path's shapes; the bf16 teacher-forced gate; a graphed stream; for vlm
+    the pipeline; fp32 at full depth, torch-splitk against dense-ref on the
+    card; and an fp32 depth cut at full width, the card against the CPU.
+    Returns (the decode kernel's launches in ``generate``, the numbers,
+    its max error)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.serving.engine import ServingEngine, extra_tensors
+
+    spec = FAMILY_PHASES[arch]
+    cfg = get_config(arch)
+    tag = f"[{cfg.family}]"
+    t = time.time()
+    engine = ServingEngine(cfg, seed=SEED)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in engine.params.parameters())
+    p_bytes = sum(p.numel() * p.element_size() for p in engine.params.parameters())
+    log(f"{tag} {cfg.name}: {cfg.n_layers} layers"
+        + (f" (+{cfg.n_encoder_layers} encoder)" if cfg.n_encoder_layers else "")
+        + f", d_model {cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} KV "
+        f"heads, d_head {cfg.d_head}, d_ff {cfg.d_ff}"
+        + (f", {cfg.ssm_heads} SSM heads of {cfg.ssm_head_dim}, state "
+           f"{cfg.ssm_state}, shared attention every {cfg.shared_attn_every} "
+           f"({launches_a_step(cfg)} sites)" if cfg.family == "hybrid" else "")
+        + (f", {cfg.frontend_tokens} frontend rows" if cfg.frontend_tokens else "")
+        + f"; {n_params / 1e9:.3f} B params ({p_bytes / 1e9:.2f} GB) drawn on "
+        f"the card from seed {SEED} in {time.time() - t:.1f} s; backend "
+        f"{engine.attn_backend.name}")
+    S = spec["prompt"]
+    prompts = np.random.default_rng(1).integers(
+        0, cfg.vocab_size, size=(SERVE_BATCH, S)).astype(np.int32)
+    extra = frontend(cfg, SERVE_BATCH, SEED + 1)
+    engine.generate(prompts[:, :16], max_new_tokens=2, extra=extra)  # warm-up
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = engine.generate(prompts, max_new_tokens=NEW, extra=extra)
+    t_first = time.perf_counter() - t
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    per_step = launches_a_step(cfg)
+    want = only(launches, decode_attention=per_step * NEW)
+    check(launches == want, f"{cfg.name} serving launches {launches}, want {want}")
+    V = cfg.padded_vocab()
+    check(res.tokens.shape == (SERVE_BATCH, NEW)
+          and bool(((res.tokens >= 0) & (res.tokens < V)).all()),
+          f"tokens {res.tokens.shape} out of range")
+    check(bool(np.isfinite(res.prefill_logits).all()), "logits not finite")
+    log(f"{tag} generate(B {SERVE_BATCH}, prompt {S}, {NEW} new): {t_first:.3f} "
+        f"s host wall (first timed run); decode kernel launches "
+        f"{launches['decode_attention']} = {per_step} x {NEW}; peak device "
+        f"memory {peak / 1e9:.2f} GB; first tokens {res.tokens[0, :8].tolist()}")
+
+    def wall(n_new, reps=2):
+        ts = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engine.generate(prompts, max_new_tokens=n_new, extra=extra)
+            ts.append(time.perf_counter() - t0)
+        return statistics.median(ts)
+
+    t_prefill, t_gen = wall(0), wall(NEW)
+    step = (t_gen - t_prefill) / NEW
+    log(f"{tag} {cfg.name} prefill {t_prefill * 1e3:.2f} ms (median of 2 "
+        f"generate(..., 0)); generate {t_gen * 1e3:.2f} ms (median of 2); decode "
+        f"{step * 1e3:.3f} ms/step, {SERVE_BATCH / step:.1f} tokens/s; end to "
+        f"end {SERVE_BATCH * NEW / t_gen:.1f} tokens/s, on {card}")
+    prof = profile_decode(engine, prompts, step * 1e3, extra=extra)
+
+    # the decode kernel at the path's shapes
+    need = S + NEW + (cfg.frontend_tokens or 0)
+    cap = engine.cache_layout(need).padded_len(need)
+    kv = (cfg.eff_heads, cfg.eff_kv_heads, cfg.d_head)
+    self_len = S + NEW + (cfg.frontend_tokens if cfg.family == "vlm" else 0)
+    shapes = {f"{cfg.name} self": ((SERVE_BATCH, *kv[:2], cap, kv[2]), self_len)}
+    if cfg.family == "encdec":
+        src = cfg.frontend_tokens
+        src_cap = engine.cache_layout(need).padded_len(src)
+        shapes[f"{cfg.name} cross"] = ((SERVE_BATCH, *kv[:2], src_cap, kv[2]), src)
+    timing, worst = {}, 0.0
+    for name, ((B, H, KV, Sk, D), L) in shapes.items():
+        timed = spec["timed"].get(name.split()[-1], ())
+        t_k, err = path_kernel(dev, peaks, card, name, (B, H, KV, Sk, D), L,
+                               (torch.bfloat16, torch.float32), timed)
+        worst = max(worst, err)
+        if t_k:
+            timing[name.split()[-1]] = t_k
+
+    batch = {"tokens": torch.as_tensor(prompts, dtype=torch.int64, device=dev),
+             **extra_tensors(extra, dev)}
+    forced = teacher_forced(engine, batch, res, need, card,
+                            logit_gate=spec["logit_gate"])
+    stream = family_stream(engine, dev, card)
+    pipe = None
+    if "pipeline" in spec:
+        pipe = vlm_pipeline(engine, prompts, extra["extra_embeds"], card)
+
+    # fp32 at full depth on the card: the kernel against dense-ref
+    p32 = type(engine.params)(cfg, dtype=torch.float32, device=dev)
+    for dst, src in zip(p32.parameters(), engine.params.parameters()):
+        dst.copy_(src)
+    del engine
+    torch.cuda.empty_cache()
+    outs = {name: ServingEngine(cfg, params=p32, attn_backend=name).generate(
+        prompts, max_new_tokens=NEW_FP32, extra=extra)
+        for name in ("torch-splitk", "dense-ref")}
+    a, b = outs["torch-splitk"], outs["dense-ref"]
+    check(np.array_equal(a.tokens, b.tokens),
+          f"{cfg.name} fp32 tokens differ: {a.tokens} vs {b.tokens}")
+    err_full = float(np.abs(a.prefill_logits - b.prefill_logits).max())
+    np.testing.assert_allclose(a.prefill_logits, b.prefill_logits, **E2E_TOL)
+    log(f"{tag} {cfg.name} fp32 params at full depth ({n_params * 4 / 1e9:.2f} "
+        f"GB), B {SERVE_BATCH}, prompt {S}, {NEW_FP32} new: torch-splitk and "
+        f"dense-ref tokens identical; last-step max |logits diff| "
+        f"{err_full:.3e} (tolerance 1e-4)")
+
+    # fp32 cut in depth at full width: the card against the CPU
+    cut = dataclasses.replace(cfg, **spec["cut"])
+    cut_card = type(p32)(cut, dtype=torch.float32, device=dev)
+    for name, dst in cut_card.named_parameters():
+        dst.copy_(p32.get_parameter(name))
+    del p32, outs
+    torch.cuda.empty_cache()
+    cut_cpu = type(cut_card)(cut, dtype=torch.float32, device="cpu")
+    for dst, src in zip(cut_cpu.parameters(), cut_card.parameters()):
+        dst.copy_(src.cpu())
+    Bc, Sc, newc = FAMILY_CPU
+    short = prompts[:Bc, :Sc]
+    ex_c = extra and {k: v[:Bc] for k, v in extra.items()}
+    memory = {}
+    if cfg.family == "encdec":
+        from repro_torch.models import encdec
+
+        encode = encdec.encode
+
+        def recorded(params, frames, c):
+            memory["card"] = encode(params, frames, c)
+            return memory["card"]
+
+        encdec.encode = recorded
+    try:
+        t = time.time()
+        a = ServingEngine(cut, params=cut_card).generate(
+            short, max_new_tokens=newc, extra=ex_c)
+        t_card = time.time() - t
+    finally:
+        if memory:
+            encdec.encode = encode
+    t = time.time()
+    b = ServingEngine(cut, params=cut_cpu, device="cpu").generate(
+        short, max_new_tokens=newc, extra=ex_c)
+    t_cpu = time.time() - t
+    check(np.array_equal(a.tokens, b.tokens),
+          f"{cfg.name} fp32 cut: card tokens {a.tokens} vs cpu {b.tokens}")
+    err_cut = float(np.abs(a.prefill_logits - b.prefill_logits).max())
+    note = ""
+    if memory:
+        # The encoder rounds its activations to bf16, as the reference's
+        # does, and the card sums in another order than the CPU: a rounding
+        # that flips moves a logit past 1e-4.  So the CPU also decodes from
+        # the card's encoder output (the encoder pinned), held to 1e-4;
+        # the encoders' own outputs are compared, and the unpinned logits
+        # reported.
+        cpu_mem = encode(cut_cpu, torch.from_numpy(ex_c["frames"]), cut)
+        card_mem = memory["card"].float().cpu()
+        same = (cpu_mem.float() == card_mem).float().mean().item()
+        mem_err = (cpu_mem.float() - card_mem).abs().max().item()
+        encdec.encode = lambda params, frames, c: memory["card"].to(frames.device)
+        try:
+            b = ServingEngine(cut, params=cut_cpu, device="cpu").generate(
+                short, max_new_tokens=newc, extra=ex_c)
+        finally:
+            encdec.encode = encode
+        check(np.array_equal(a.tokens, b.tokens),
+              f"{cfg.name} fp32 cut, encoder pinned: card tokens {a.tokens} "
+              f"vs cpu {b.tokens}")
+        note = (f"; encoder outputs (bf16) card vs CPU: {same:.4%} equal, max "
+                f"|diff| {mem_err:.3e}; unpinned last-step max |logits diff| "
+                f"{err_cut:.3e} (reported); with the CPU decoding from the "
+                f"card's encoder output")
+        err_cut = float(np.abs(a.prefill_logits - b.prefill_logits).max())
+    np.testing.assert_allclose(a.prefill_logits, b.prefill_logits, **E2E_TOL)
+    log(f"{tag} {cfg.name} fp32 params cut to {spec['cut']} (a depth cut, the "
+        f"widths full), B {Bc}, prompt {Sc}, {newc} new tokens: card and CPU "
+        f"tokens identical {a.tokens.tolist()}{note}; last-step max |logits "
+        f"diff| {err_cut:.3e} (tolerance 1e-4; logits std "
+        f"{float(b.prefill_logits.std()):.3f}); card {t_card:.1f} s, CPU "
+        f"{t_cpu:.1f} s host wall")
+    del cut_card, cut_cpu
+    torch.cuda.empty_cache()
+    summary = dict(prefill_ms=t_prefill * 1e3, step_ms=step * 1e3,
+                   tokens_per_s=SERVE_BATCH / step, peak_gb=peak / 1e9,
+                   profile=prof, teacher_forced=forced, stream=stream,
+                   fp32_full_err=err_full, fp32_cut_err=err_cut)
+    if pipe is not None:
+        summary["pipeline_launches"], summary["pipeline"] = pipe
+    return launches["decode_attention"], timing, summary, worst
+
+
+# ---------------------------------------------------------------------------
 
 
 def build_all():
@@ -2705,8 +3301,17 @@ def main() -> int:
         moe_generate_launches=moe_launches, moe_decode_shape=moe_timing,
         moe=moe)
     errs["decode_attention"] = max(errs["decode_attention"], moe_err)
+    for arch, key in (("zamba2-7b", "hybrid"), ("seamless-m4t-medium", "encdec"),
+                      ("internvl2-2b", "vlm")):
+        t = time.time()
+        n, shapes, summary, err = family_phase(dev, peaks, card, arch)
+        log(f"[{key}] phase {time.time() - t:.1f} s")
+        timing["decode_attention"].update({
+            f"{key}_generate_launches": n, f"{key}_decode_shapes": shapes,
+            key: summary})
+        errs["decode_attention"] = max(errs["decode_attention"], err)
 
-    # ---- 10. kernels line ------------------------------------------------
+    # ---- 13. kernels line ------------------------------------------------
     kernels = [dict(name=k, route="cuda", source=SOURCES[k],
                     replaces=REPLACES[k], launches=launches[k],
                     max_abs_err=errs[k], **timing[k])

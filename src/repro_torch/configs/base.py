@@ -238,13 +238,13 @@ _ARCH_MODULES = {
     "mamba2-370m": "mamba2_370m",
     "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
     "deepseek-moe-16b": "deepseek_moe_16b",
+    "zamba2-7b": "zamba2_7b",
+    "seamless-m4t-medium": "seamless_m4t_medium",
+    "internvl2-2b": "internvl2_2b",
 }
 
-# The reference's other architectures, each with where the port stands.
+# The reference's other architecture, and where the port has it.
 _NOT_PORTED = {
-    "zamba2-7b": "ROADMAP.md Queue 1 item 5 ports the hybrid family",
-    "seamless-m4t-medium": "ROADMAP.md Queue 1 item 5 ports the encdec family",
-    "internvl2-2b": "ROADMAP.md Queue 1 item 4 (its vlm half) ports it",
     "sparse-dnn-graphchallenge": (
         "the FSI path builds its net with "
         "repro_torch.data.graphchallenge.make_sparse_dnn"),

@@ -202,8 +202,8 @@ def build_stage_executors(
     for spec in plan.stages:
         sp = sm.slice_params(params, spec)
 
-        def prefill_fn(p, x, max_len, _spec=spec):
-            return sm.prefill(p, _spec, x, max_len)
+        def prefill_fn(p, x, max_len, extra=None, _spec=spec):
+            return sm.prefill(p, _spec, x, max_len, extra)
 
         def decode_fn(p, x, c, _spec=spec):
             return sm.decode_step(p, _spec, x, c)
@@ -305,7 +305,7 @@ def run_lm_pipeline(
     seed: int = 0,
     overlap: bool = True,
     eager_poll: bool = True,
-    extra: Optional[Dict[str, np.ndarray]] = None,
+    extra: Optional[Any] = None,
     executors: Optional[List[ModelStageWorker]] = None,
     fabric=None,
     faults: Optional[FaultPlan] = None,
@@ -347,12 +347,10 @@ def run_lm_pipeline(
     armed, every billed count on the main fabrics stays bit-identical to
     ``faults=None``.
 
-    ``extra`` (frontend embeddings) belongs to the vlm family (ROADMAP.md
-    Queue 1 item 4) and raises.
+    ``extra``: the vlm family's frontend embeddings ``[B, F, d]`` (a numpy
+    array or a tensor), prepended on the embedding stage, as the
+    reference's ``extra``.
     """
-    if extra:
-        raise NotImplementedError(
-            "extra inputs belong to the vlm family: ROADMAP.md Queue 1 item 4")
     latency = latency or LatencyModel()
     compute = compute or ComputeModel()
     prompts = np.asarray(prompts)
@@ -550,6 +548,10 @@ def run_lm_pipeline(
         w.charge_compute(executors[m].flops_per_token * n_tokens, compute)
 
     # ---------------- prefill chain -----------------------------------------
+    extra_in = None
+    if extra is not None:
+        extra_in = (extra if isinstance(extra, torch.Tensor)
+                    else torch.from_numpy(np.asarray(extra, np.float32))).to(dev)
     act_dtype = None
     out = None
     hop = None
@@ -563,7 +565,7 @@ def run_lm_pipeline(
             buf = drain_hop(hop, m - 1, m, n_rows, width, ch)
             x_in = on_device(buf.reshape(B, -1, width), act_dtype)
         n_prefill_tokens = B * (x_in.shape[1] if m else S)
-        out = ex.run_prefill(x_in, max_len)
+        out = ex.run_prefill(x_in, max_len, extra=extra_in if m == 0 else None)
         charge_stage(m, n_prefill_tokens)
         if chaos is not None:
             _checkpoint_kv(m)

@@ -47,7 +47,12 @@
 //   * R = D / (16 bytes) lanes share one key row of a tile, each holding a
 //     16-byte slice; every R-lane "row group" runs its own online softmax
 //     (m, l, acc) over its rows, reducing its dot products with warp
-//     shuffles, and a lane owns acc[G][its slice of D];
+//     shuffles, and a lane owns acc[G][its slice of D].  Where R does not
+//     divide 32 (D 112: R 14 in bf16, 28 in fp32) a row group is padded to
+//     Rp, the next power of two: lanes c >= R hold a zero slice of q and
+//     of each row, load and store nothing, and add 0 to the shuffled dot
+//     products (2 of 16, or 4 of 32, lanes idle).  For D 32, 64 and 128,
+//     Rp = R and the padding compiles away;
 //   * after the sweep the row groups merge by lse weight, inside a warp
 //     with shuffles, then across warps in shared memory, into the block's
 //     partial (m, l, acc) in scratch;
@@ -107,6 +112,11 @@ struct Slice<__nv_bfloat16> {
   }
 };
 
+// the next power of two >= r (r <= 32): lanes of a padded row group
+__host__ __device__ constexpr int pow2_at_least(int r) {
+  return r <= 1 ? 1 : 2 * pow2_at_least((r + 1) / 2);
+}
+
 // keys of one tile: kTileBytes of rows, at most 64
 template <typename T, int D>
 __host__ __device__ constexpr int tile_rows() {
@@ -161,13 +171,15 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         int s_cap, int split_keys, int n_split, int kv_heads,
                         int len_rows, float scale) {
   constexpr int kVec = Slice<T>::kVec;
-  constexpr int R = D / kVec;        // lanes that share one key row
-  constexpr int kRowsPerWarp = 32 / R;
+  constexpr int R = D / kVec;        // lanes that hold a slice of one key row
+  constexpr int Rp = pow2_at_least(R);  // lanes of a row group, R padded
+  constexpr bool kPadded = Rp != R;
+  constexpr int kRowsPerWarp = 32 / Rp;
   constexpr int kGroups = kWarps * kRowsPerWarp;
   constexpr int kRows = tile_rows<T, D>();
   constexpr int kRowBytes = D * (int)sizeof(T);
   constexpr int kPart = G * (D + 2);  // floats of one partial
-  static_assert(D % kVec == 0 && R >= 1 && R <= 32 && 32 % R == 0,
+  static_assert(D % kVec == 0 && R >= 1 && Rp <= 32 && 32 % Rp == 0,
                 "D must be a multiple of 16 bytes and at most 32 of them");
   static_assert(kRows % kGroups == 0, "a tile must cover the row groups");
   static_assert(kWarps * G * (D + 2) * 4 <= kRingBytes, "merge space");
@@ -180,8 +192,9 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int split = blockIdx.y;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int c = lane % R;     // this lane's 16-byte slice of a row
-  const int grp = warp * kRowsPerWarp + lane / R;
+  const int c = lane % Rp;    // this lane's 16-byte slice of a row
+  const bool live = !kPadded || c < R;  // a padding lane holds no slice
+  const int grp = warp * kRowsPerWarp + lane / Rp;
 
   const int cache_len = len[len_rows > 1 ? bh / kv_heads : 0];
   const int n = cache_len >= 1 ? min(cache_len, s_cap) : s_cap;
@@ -218,8 +231,9 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float qf[G][kVec];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    const uint4 w = *reinterpret_cast<const uint4*>(
-        q + ((long long)bh * G + g) * D + c * kVec);
+    const uint4 w = live ? *reinterpret_cast<const uint4*>(
+                               q + ((long long)bh * G + g) * D + c * kVec)
+                         : make_uint4(0u, 0u, 0u, 0u);
     Slice<T>::unpack(w, qf[g]);
   }
 
@@ -242,7 +256,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int u = 0; u < kRows / kGroups; ++u) {
       const int r = u * kGroups + grp;
-      if (r < rows) {
+      if (r < rows && live) {
         kr[u] = *reinterpret_cast<const uint4*>(ks + r * kRowBytes);
         vr[u] = *reinterpret_cast<const uint4*>(vs + r * kRowBytes);
       } else {
@@ -263,9 +277,9 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int e = 0; e < kVec; ++e) dot = fmaf(qf[g][e], kf[e], dot);
 #pragma unroll
-        for (int off = R / 2; off > 0; off >>= 1)
+        for (int off = Rp / 2; off > 0; off >>= 1)
           dot += __shfl_xor_sync(kFull, dot, off);
-        if (r < rows) {  // the same for all R lanes of the group
+        if (r < rows) {  // the same for all Rp lanes of the group
           const float sv = t < cache_len ? dot * scale : kNegInf;
           // one exp: exp(s - m) when m stays, exp(m - s) as the
           // correction of the old terms when s raises the max
@@ -286,10 +300,10 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (threadIdx.x == 0 && i + kStages < n_tiles) issue(i + kStages);
   }
 
-  // merge the row groups of a warp: lanes c, c + R, c + 2R, ... hold the
+  // merge the row groups of a warp: lanes c, c + Rp, c + 2Rp, ... hold the
   // same slice of D for different keys
 #pragma unroll
-  for (int off = R; off < 32; off <<= 1) {
+  for (int off = Rp; off < 32; off <<= 1) {
 #pragma unroll
     for (int g = 0; g < G; ++g) {
       const float mo = __shfl_xor_sync(kFull, m[g], off);
@@ -310,7 +324,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* sm_acc = reinterpret_cast<float*>(ring);  // [kWarps][G][D]
   float* sm_m = sm_acc + kWarps * G * D;            // [kWarps][G]
   float* sm_l = sm_m + kWarps * G;
-  if (lane < R) {
+  if (lane < R) {  // the first row group's live lanes
 #pragma unroll
     for (int g = 0; g < G; ++g) {
 #pragma unroll
@@ -411,6 +425,7 @@ int with_d(int d_head, F&& f) {
   switch (d_head) {
     case 32: return f(Type<T>{}, Int<G>{}, Int<32>{});
     case 64: return f(Type<T>{}, Int<G>{}, Int<64>{});
+    case 112: return f(Type<T>{}, Int<G>{}, Int<112>{});
     case 128: return f(Type<T>{}, Int<G>{}, Int<128>{});
     default: return (int)cudaErrorInvalidValue;
   }

@@ -42,13 +42,14 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
-__all__ = ["decode_mha", "launch", "plan_for", "LAUNCHES", "GROUPS",
+__all__ = ["decode_mha", "launch", "plan_for", "check_kernel_shape",
+           "LAUNCHES", "GROUPS",
            "HEAD_DIMS", "SPLIT_TILE", "MAX_SPLIT_TILES", "load_library",
            "library_path", "release_scratch", "split_plan"]
 
 LAUNCHES = {"decode_attention": 0}
 GROUPS = (1, 2, 4, 8)       # query heads per KV head the kernel is built for
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 112, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SPLIT_TILE = 64        # a split covers whole tiles of 64 keys
 MAX_SPLIT_TILES = 16   # tiles of a split on a long cache
@@ -193,6 +194,15 @@ def _check(q, k_cache, v_cache):
                          f"{tuple(q.shape)}: need [B, KV, S>=1, D] with KV | H")
 
 
+def check_kernel_shape(G: int, D: int) -> None:
+    """Raise unless the kernel is built for ``G`` = H/KV and head dim
+    ``D`` (``GROUPS``, ``HEAD_DIMS``: the dispatch in
+    ``csrc/decode_attention.cu``)."""
+    if G not in GROUPS or D not in HEAD_DIMS:
+        raise ValueError(f"decode_mha's kernel takes G = H/KV in {GROUPS} and "
+                         f"D in {HEAD_DIMS}, got G={G}, D={D}")
+
+
 def _len_tensor(cache_len, device: torch.device, batch: int) -> torch.Tensor:
     if isinstance(cache_len, torch.Tensor):
         if cache_len.dtype != torch.int32 or cache_len.numel() not in (1, batch):
@@ -218,11 +228,7 @@ def decode_mha(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
         return decode_attention_ref(q, k_cache, v_cache, lens)
     if dev.type != "cuda":
         raise ValueError(f"decode_mha runs on cpu or cuda, not {dev.type}")
-    D = q.shape[2]
-    G = q.shape[1] // k_cache.shape[1]
-    if G not in GROUPS or D not in HEAD_DIMS:
-        raise ValueError(f"decode_mha's kernel takes G = H/KV in {GROUPS} and "
-                         f"D in {HEAD_DIMS}, got G={G}, D={D}")
+    check_kernel_shape(q.shape[1] // k_cache.shape[1], q.shape[2])
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned for the kernel")

@@ -5,6 +5,11 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --full-size
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \
         --full-size
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --arch seamless-m4t-medium
+
+vlm and encdec configs get random frontend embeddings from ``--seed``
+(``extra_embeds`` and ``frames``), as the reference's launcher makes them.
 """
 
 from __future__ import annotations
@@ -14,6 +19,7 @@ import argparse
 import numpy as np
 
 from repro_torch.configs import get_config
+from repro_torch.models.registry import FRONTEND_INPUTS
 from repro_torch.serving.engine import ServingEngine
 
 
@@ -35,7 +41,11 @@ def main(argv=None):
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(0, cfg.vocab_size,
                            size=(args.batch, args.prompt_len)).astype(np.int32)
-    result = engine.generate(prompts, max_new_tokens=args.max_new)
+    extra = {}
+    if cfg.family in FRONTEND_INPUTS:
+        extra[FRONTEND_INPUTS[cfg.family]] = rng.standard_normal(
+            (args.batch, cfg.frontend_tokens, cfg.d_model)).astype(np.float32)
+    result = engine.generate(prompts, max_new_tokens=args.max_new, extra=extra)
     print(f"[{args.arch}] {engine.attn_backend.name} on {args.device}: "
           f"generated {result.tokens.shape} tokens:")
     print(result.tokens)

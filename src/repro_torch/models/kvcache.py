@@ -9,8 +9,11 @@ for the whole batch (an int32 scalar tensor) or one per batch row (an int32
 ``[B]`` tensor, as the continuous-batching scheduler keeps it), and lives
 on the cache's device so a decode loop never reads it back to the host.
 The mamba2 cache (``models/mamba2.py``) holds ``{"conv": {"x", "B", "C"},
-"ssm", "length"}``; every leaf but ``length`` has the layer axis first and
-the batch axis second.
+"ssm", "length"}``, the hybrid cache (``models/hybrid.py``) the same plus
+one ``k``/``v`` stack over its shared-attention sites, and the
+encoder-decoder cache (``models/encdec.py``) ``k``/``v`` plus the
+cross-attention ``kc``/``vc`` and ``src_length``; every leaf but the
+lengths has the layer (or site) axis first and the batch axis second.
 
 Unlike the reference's functional ``dynamic_update_slice``, the updates
 here write into the cache in place: a full-size cache is hundreds of MB,
@@ -33,9 +36,10 @@ __all__ = ["KVCacheLayout", "init_attn_cache", "pad_kv_to_layout",
 # Cache-dict keys whose subtrees hold *growing* self-attention KV (sequence
 # axis at -2, one new position written per decode step) vs. state that is
 # slot-resident in the continuous-batching scheduler (the SSM and conv
-# states, the length): the keys of the two families the port has.
+# states, the encoder-decoder's cross-attention KV, written once at
+# prefill, and the lengths).
 _GROWING_KV_KEYS = frozenset({"k", "v"})
-_STATIC_KEYS = frozenset({"conv", "ssm", "length"})
+_STATIC_KEYS = frozenset({"conv", "ssm", "length", "kc", "vc", "src_length"})
 
 
 def seq_axis_tree(cache: Any, _path=()) -> Any:
@@ -47,10 +51,11 @@ def seq_axis_tree(cache: Any, _path=()) -> Any:
     :class:`repro_torch.serving.kv_pool.KVBlockPool` owns and which the
     scheduler keeps per slot.  The classification is by dict key along the
     path: ``k``/``v`` subtrees grow, unless a key on the path marks
-    slot-resident state (``conv``, ``ssm``, ``length``).  The port's mamba2 conv
-    cache is a dict of ``x``, ``B`` and ``C`` tails; the ``conv`` key on
-    their path keeps them in the slot.  The moe cache's ``stacks`` is a list
-    of ``{k, v}`` dicts, one a block kind; a list adds no key to the path.
+    slot-resident state (``conv``, ``ssm``, ``kc``, ``vc``, the lengths).
+    The port's mamba2 conv cache is a dict of ``x``, ``B`` and ``C``
+    tails; the ``conv`` key on their path keeps them in the slot.  The moe
+    cache's ``stacks`` is a list of ``{k, v}`` dicts, one a block kind; a
+    list adds no key to the path.
     Families re-export this as ``cache_seq_axes``.
     """
     if isinstance(cache, dict):

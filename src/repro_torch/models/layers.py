@@ -47,6 +47,11 @@ def matmul_acc(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     x2 = x.reshape(-1, x.shape[-1])
     if x2.dtype == ACC_DTYPE and w.dtype == ACC_DTYPE:
         y = x2 @ w
+    elif x2.dtype != w.dtype:
+        # bf16 activations against fp32 weights (the encoder of an fp32
+        # encdec model, whose frames the reference casts to bf16): widened,
+        # which is exact, as the reference's mixed einsum promotes them
+        y = x2.to(ACC_DTYPE) @ w.to(ACC_DTYPE)
     elif x2.is_cuda:
         y = torch.mm(x2, w, out_dtype=ACC_DTYPE)
     else:
@@ -138,11 +143,15 @@ def apply_rope(
 
 
 class Mlp(nn.Module):
-    def __init__(self, d_model: int, d_ff: int, dtype=PARAM_DTYPE, device="cpu"):
+    """``d_out`` defaults to ``d_model``; the hybrid family's shared block
+    reads ``concat(hidden, embedding)`` (``d_model`` 2d) and writes d."""
+
+    def __init__(self, d_model: int, d_ff: int, dtype=PARAM_DTYPE, device="cpu",
+                 d_out: Optional[int] = None):
         super().__init__()
         self.wi_gate = empty_param((d_model, d_ff), dtype, device)
         self.wi_up = empty_param((d_model, d_ff), dtype, device)
-        self.wo = empty_param((d_ff, d_model), dtype, device)
+        self.wo = empty_param((d_ff, d_out or d_model), dtype, device)
 
 
 def init_mlp(module: Mlp, generator: torch.Generator) -> Mlp:
@@ -150,8 +159,8 @@ def init_mlp(module: Mlp, generator: torch.Generator) -> Mlp:
     dt = module.wi_gate.dtype
     module.wi_gate.copy_(dense_init(generator, (d_model, d_ff), dtype=dt))
     module.wi_up.copy_(dense_init(generator, (d_model, d_ff), dtype=dt))
-    module.wo.copy_(dense_init(generator, (d_ff, d_model), in_axis_size=d_ff,
-                               dtype=dt))
+    module.wo.copy_(dense_init(generator, tuple(module.wo.shape),
+                               in_axis_size=d_ff, dtype=dt))
     return module
 
 
@@ -168,13 +177,18 @@ def mlp(params: Mlp, x: torch.Tensor) -> torch.Tensor:
 
 
 class Attention(nn.Module):
+    """``q_in_dim`` (default ``d_model``) is the width the projections
+    read: the hybrid family's shared block reads ``concat(hidden,
+    embedding)``, 2 ``d_model``; ``wo`` writes ``d_model``."""
+
     def __init__(self, d_model: int, n_heads: int, n_kv_heads: int,
                  d_head: int, qkv_bias: bool = False, dtype=PARAM_DTYPE,
-                 device="cpu"):
+                 device="cpu", q_in_dim: Optional[int] = None):
         super().__init__()
-        self.wq = empty_param((d_model, n_heads, d_head), dtype, device)
-        self.wk = empty_param((d_model, n_kv_heads, d_head), dtype, device)
-        self.wv = empty_param((d_model, n_kv_heads, d_head), dtype, device)
+        q_in = q_in_dim or d_model
+        self.wq = empty_param((q_in, n_heads, d_head), dtype, device)
+        self.wk = empty_param((q_in, n_kv_heads, d_head), dtype, device)
+        self.wv = empty_param((q_in, n_kv_heads, d_head), dtype, device)
         self.wo = empty_param((n_heads, d_head, d_model), dtype, device)
         if qkv_bias:
             self.bq = empty_param((n_heads, d_head), dtype, device)

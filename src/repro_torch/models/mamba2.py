@@ -32,7 +32,7 @@ from repro_torch.models.kvcache import seq_axis_tree
 ACC = torch.float32
 Cache = Dict[str, Any]
 
-__all__ = ["Mamba2Block", "Mamba2", "init", "params_from_arrays",
+__all__ = ["Mamba2Block", "Mamba2", "init", "init_blocks", "params_from_arrays",
            "chunk_cumsum", "causal_conv", "ssd_chunked", "ssd_decode", "ssm_inputs",
            "block_apply", "decode_block", "forward", "prefill", "decode_step",
            "cache_seq_axes"]
@@ -86,8 +86,18 @@ def init(generator: torch.Generator, cfg: ModelConfig,
     the kernel width, 0.02 embeddings, unit norms, zero biases, ``A_log``
     0, ``dt_bias`` -2, ``D`` 1), drawn in fp32 and cast to ``dtype``."""
     model = Mamba2(cfg, dtype=dtype, device=generator.device)
+    init_blocks(model.blocks, generator, cfg, dtype)
+    model.embed.copy_(L.embed_init(generator, tuple(model.embed.shape), dtype))
+    model.ln_f.fill_(1.0)
+    return model
+
+
+def init_blocks(blocks, generator: torch.Generator, cfg: ModelConfig,
+                dtype=L.PARAM_DTYPE) -> None:
+    """Fill each :class:`Mamba2Block` of ``blocks`` with :func:`init`'s
+    random weights."""
     K, di = cfg.conv_kernel, cfg.d_inner
-    for blk in model.blocks:
+    for blk in blocks:
         for name in ("in_z", "in_x", "in_B", "in_C", "in_dt"):
             p = getattr(blk, name)
             p.copy_(L.dense_init(generator, tuple(p.shape), dtype=dtype))
@@ -102,9 +112,6 @@ def init(generator: torch.Generator, cfg: ModelConfig,
         for name in ("ln", "norm", "D"):
             getattr(blk, name).fill_(1.0)
         blk.dt_bias.fill_(-2.0)
-    model.embed.copy_(L.embed_init(generator, tuple(model.embed.shape), dtype))
-    model.ln_f.fill_(1.0)
-    return model
 
 
 def params_from_arrays(cfg: ModelConfig, tree: Mapping[str, Any],

@@ -1,4 +1,10 @@
-"""Dense decoder-only transformer (internlm2 / llama3.2 / minicpm / codeqwen).
+"""Dense decoder-only transformer (internlm2 / llama3.2 / minicpm / codeqwen,
+and the LM backbone of internvl2).
+
+The vlm family reuses this module: ``extra_embeds`` (precomputed patch
+embeddings from the stub frontend, ``[B, F, d]``) are prepended to the
+token embeddings at ``forward``, ``prefill`` and the embedding stage of
+``stage_prefill``; decoding is the dense family's.
 
 The parameters live in a :class:`Transformer` module: ``embed``, a
 ``ModuleList`` of blocks, ``ln_f`` and, unless the embeddings are tied,
@@ -32,6 +38,7 @@ Cache = Dict[str, torch.Tensor]
 __all__ = ["Block", "Transformer", "init", "params_from_arrays", "forward",
            "prefill", "decode_step", "cache_seq_axes", "param_count",
            "prefill_layers", "decode_positions", "decode_layers", "final_logits",
+           "embed_with_extra",
            "slice_stage_params", "stage_head", "stage_prefill",
            "stage_decode_step"]
 
@@ -162,10 +169,22 @@ def final_logits(x: torch.Tensor, ln_f: torch.Tensor, table: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def forward(params: Transformer, tokens: torch.Tensor,
-            cfg: ModelConfig) -> torch.Tensor:
-    """tokens [B, S] → logits [B, S, V] (fp32)."""
-    x = L.embed_tokens(params.embed, tokens)
+def embed_with_extra(table: torch.Tensor, tokens: torch.Tensor,
+                     extra_embeds: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """The token embeddings ``[B, S, d]``, with ``extra_embeds [B, F, d]``
+    (cast to the table's dtype) prepended where given: ``[B, F + S, d]``."""
+    x = L.embed_tokens(table, tokens)
+    if extra_embeds is not None:
+        x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
+    return x
+
+
+def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
+            extra_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """tokens [B, S] (+ optional prepended embeddings [B, F, d]) → logits
+    [B, F + S, V] (fp32)."""
+    x = embed_with_extra(params.embed, tokens, extra_embeds)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     for block in params.blocks:
@@ -204,12 +223,14 @@ def _dense_ffn(cfg: ModelConfig) -> Callable:
 
 
 def prefill(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
-            max_len: int, layout: KVCacheLayout = KVCacheLayout(),
+            max_len: int, extra_embeds: Optional[torch.Tensor] = None,
+            layout: KVCacheLayout = KVCacheLayout(),
             ) -> Tuple[torch.Tensor, Cache]:
-    """Run the prompt; build the [L, B, KV, S, D] KV cache with capacity
-    ``layout.padded_len(max_len)`` (see ``models.kvcache``).  Returns the
-    last position's logits [B, 1, V] (fp32) and the cache."""
-    x = L.embed_tokens(params.embed, tokens)
+    """Run the prompt (after ``extra_embeds``, where given); build the [L,
+    B, KV, S, D] KV cache with capacity ``layout.padded_len(max_len)`` (see
+    ``models.kvcache``).  Returns the last position's logits [B, 1, V]
+    (fp32) and the cache."""
+    x = embed_with_extra(params.embed, tokens, extra_embeds)
     x, cache = prefill_layers(params.blocks, x, cfg, max_len, layout,
                               _dense_ffn(cfg))
     return final_logits(x[:, -1:], params.ln_f, params.head, cfg), cache
@@ -336,13 +357,16 @@ def stage_head(sp: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig
 
 def stage_prefill(sp: Dict[str, Any], spec, x_in: torch.Tensor,
                   cfg: ModelConfig, max_len: int,
+                  extra_embeds: Optional[torch.Tensor] = None,
                   layout: KVCacheLayout = KVCacheLayout(),
                   ) -> Tuple[torch.Tensor, Cache]:
     """One stage of ``prefill``.  ``x_in`` is the token ids [B, S] on the
-    embedding stage, the previous stage's hidden states [B, S, d]
-    otherwise.  Returns the hidden states [B, S, d] (the last position's
-    logits [B, 1, V] on the head stage) and the stage's resident cache."""
-    x = L.embed_tokens(sp["embed"], x_in) if spec.has_embed else x_in
+    embedding stage (``extra_embeds`` prepended there, where given), the
+    previous stage's hidden states [B, S, d] otherwise.  Returns the hidden
+    states [B, S, d] (the last position's logits [B, 1, V] on the head
+    stage) and the stage's resident cache."""
+    x = (embed_with_extra(sp["embed"], x_in, extra_embeds) if spec.has_embed
+         else x_in)
     x, cache = prefill_layers(sp["blocks"], x, cfg, max_len, layout,
                               _dense_ffn(cfg))
     if spec.has_head:

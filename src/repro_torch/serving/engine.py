@@ -1,9 +1,12 @@
 """Batched serving engine: prefill + greedy decode loop.
 
 Prompts are prefilled once, then decoded step by step with the family's
-cache (the KV cache of the dense family, the fp32 KV stacks of the moe
-family, the conv tails and SSM state of the ssm family), as in the
-reference's device engine.  The engine runs on
+cache (the KV cache of the dense and vlm families, the fp32 KV stacks of
+the moe family, the conv tails and SSM state of the ssm family, both of
+the hybrid's, the self- and cross-attention KV of the encdec family), as
+in the reference's device engine.  ``extra`` carries the stub frontends'
+embeddings: ``{"extra_embeds": [B, F, d]}`` for vlm, ``{"frames": [B,
+S_src, d]}`` for encdec.  The engine runs on
 a CUDA card unless constructed with ``device="cpu"``, and everything it
 launches runs on that device: the attention backend defaults to
 ``torch-splitk``, the hand-written split-KV kernel, and the generated
@@ -32,7 +35,7 @@ from repro_torch.core.backends import (
 )
 from repro_torch.models.registry import get_model
 
-__all__ = ["GenerationResult", "ServingEngine"]
+__all__ = ["GenerationResult", "ServingEngine", "extra_tensors"]
 
 
 @dataclasses.dataclass
@@ -43,6 +46,17 @@ class GenerationResult:
     # Set by the fabric engine: the full LmPipelineResult (billing stats,
     # dual-clock makespans, wire volumes).  None on the device path.
     fabric: Optional[Any] = None
+
+
+def extra_tensors(extra: Optional[Dict[str, Any]], device) -> Dict[str, Any]:
+    """``extra``'s arrays as tensors on ``device`` (numpy arrays through
+    fp32, which holds bf16 and fp32 exactly; tensors as they are)."""
+    out = {}
+    for key, a in (extra or {}).items():
+        if not isinstance(a, torch.Tensor):
+            a = torch.from_numpy(np.asarray(a, dtype=np.float32))
+        out[key] = a.to(device)
+    return out
 
 
 class ServingEngine:
@@ -60,8 +74,10 @@ class ServingEngine:
 
         ``params``: the family's module, a
         :class:`repro_torch.models.transformer.Transformer`, a
-        :class:`repro_torch.models.moe.Moe` or a
-        :class:`repro_torch.models.mamba2.Mamba2` (see each module's
+        :class:`repro_torch.models.moe.Moe`, a
+        :class:`repro_torch.models.mamba2.Mamba2`, a
+        :class:`repro_torch.models.hybrid.Hybrid` or a
+        :class:`repro_torch.models.encdec.EncDec` (see each module's
         ``params_from_arrays``); ``None`` draws random bf16 weights on
         ``device`` from a ``torch.Generator`` seeded with ``seed``.
 
@@ -122,21 +138,18 @@ class ServingEngine:
         max_len: Optional[int] = None,
     ) -> GenerationResult:
         """Greedy generation.  ``max_len`` overrides the cache capacity
-        (default: exactly what the batch needs).  ``extra`` (frontend
-        embeddings) belongs to the vlm and encdec families, which are not
-        ported yet."""
-        if extra:
-            raise NotImplementedError(
-                "extra inputs belong to the vlm/encdec families: ROADMAP.md "
-                "Queue 1 items 4 and 5")
+        (default: exactly what the batch needs).  ``extra``: the frontend's
+        embeddings (module docstring), numpy arrays or tensors, moved to
+        the engine's device."""
         B, S = prompts.shape
         if self.engine == "fabric":
-            return self._generate_fabric(prompts, max_new_tokens)
+            return self._generate_fabric(prompts, max_new_tokens, extra)
         if max_len is None:
             max_len = S + max_new_tokens + (self.cfg.frontend_tokens or 0)
         batch: Dict[str, Any] = {
             "tokens": torch.as_tensor(np.asarray(prompts), dtype=torch.int64,
-                                      device=self.device)}
+                                      device=self.device),
+            **extra_tensors(extra, self.device)}
         logits, cache = self.model.prefill(self.params, batch, max_len)
         out_tokens = []
         token = logits[:, -1:].argmax(dim=-1)
@@ -211,12 +224,8 @@ class ServingEngine:
         results = []
         for step, req in enumerate(sorted(requests,
                                           key=lambda r: (r.arrival, r.rid))):
-            if req.extra:
-                raise NotImplementedError(
-                    "extra inputs belong to the vlm/encdec families: "
-                    "ROADMAP.md Queue 1 items 4 and 5")
             prompt = np.asarray(req.prompt, np.int32).reshape(1, -1)
-            res = self._generate_fabric(prompt, req.max_new_tokens)
+            res = self._generate_fabric(prompt, req.max_new_tokens, req.extra)
             results.append(RequestResult(
                 rid=req.rid, tokens=res.tokens[0],
                 final_logits=res.prefill_logits[0],
@@ -224,8 +233,12 @@ class ServingEngine:
                 admitted_step=step, finished_step=step))
         return results
 
-    def _generate_fabric(self, prompts: np.ndarray,
-                         max_new_tokens: int) -> GenerationResult:
+    def _generate_fabric(self, prompts: np.ndarray, max_new_tokens: int,
+                         extra: Optional[Dict[str, Any]]) -> GenerationResult:
+        """The pipeline's generation.  Only the vlm family stages, and its
+        ``extra`` is ``{"extra_embeds": ...}``, whose array goes to the
+        embedding stage (the reference's engine hands the pipeline the
+        dict, which its stage prefill cannot take)."""
         # Imported here: the pipeline pulls in the FaaS stack, which the
         # device path does not need.
         from repro_torch.faas.lm_pipeline import (
@@ -241,6 +254,7 @@ class ServingEngine:
             self.cfg, prompts, self.params,
             max_new_tokens=max_new_tokens, P=self.pipeline_P,
             channel=self.pipeline_channel, attn_backend=self.attn_backend,
+            extra=(extra or {}).get("extra_embeds"),
             executors=self._stage_executors,
         )
         return GenerationResult(tokens=res.tokens, prefill_logits=res.logits,

@@ -15,9 +15,10 @@ stream instead, with admission control:
   logically (defrag-free reuse);
 * per-slot ``length``: the step runs the family's ``decode_step`` over all
   slots at once with one length per slot (``cache["length"]`` of shape
-  ``[slots]``), where the reference maps a B = 1 step over the slots with
-  ``jax.vmap``; the decode kernel reads one length per batch row, and the
-  moe family's step routes each row as its own token group;
+  ``[slots]``, and the encdec family's ``src_length`` likewise), where the
+  reference maps a B = 1 step over the slots with ``jax.vmap``; the decode
+  kernel reads one length per batch row, and the moe family's step routes
+  each row as its own token group;
 * requests admitted mid-decode as slots free up, retired the step their
   token budget completes; admission order is FIFO over (arrival, rid).
 
@@ -49,6 +50,8 @@ import torch
 
 from repro_torch.core.backends import KVCacheLayout
 from repro_torch.kernels.decode_attention import ops as decode_ops
+from repro_torch.models.registry import FRONTEND_INPUTS
+from repro_torch.serving.engine import extra_tensors
 from repro_torch.serving.kv_pool import (
     RESERVED_BLOCKS,
     KVBlockPool,
@@ -144,10 +147,12 @@ class RequestScheduler:
                           * self.layout.blocks_for(slot_capacity))
 
         # The pool and the stacked slot state from one template prefill
-        # (shapes only matter; a 1-token prompt is the cheapest).
+        # (shapes only matter; a 1-token prompt is the cheapest, with the
+        # frontend's zero embeddings where the family takes them).
         logits, template = model.prefill(
             params, {"tokens": torch.zeros((1, 1), dtype=torch.long,
-                                           device=self.device)},
+                                           device=self.device),
+                     **self._template_extra()},
             self.slot_capacity)
         self.seq_axes = model.cache_seq_axes(template)
         self.pool = KVBlockPool.build(template, self.seq_axes, self.layout,
@@ -242,6 +247,14 @@ class RequestScheduler:
         else:
             self._graph.replay()
 
+    def _template_extra(self) -> Dict[str, torch.Tensor]:
+        cfg = self.model.cfg
+        key = FRONTEND_INPUTS.get(cfg.family)
+        if key is None:
+            return {}
+        return {key: torch.zeros((1, cfg.frontend_tokens, cfg.d_model),
+                                 dtype=torch.bfloat16, device=self.device)}
+
     # ------------------------------------------------------------------ #
     # host-side admission / retirement
 
@@ -257,7 +270,8 @@ class RequestScheduler:
         slot = int(np.flatnonzero(~self._active)[0])
         prompt = torch.as_tensor(np.asarray(req.prompt, np.int64).reshape(1, -1),
                                  device=self.device)
-        logits, cache = self.model.prefill(self.params, {"tokens": prompt},
+        batch = {"tokens": prompt, **extra_tensors(req.extra, self.device)}
+        logits, cache = self.model.prefill(self.params, batch,
                                            self.slot_capacity)
         need = self._need(req)
         n_blocks = (self.layout.blocks_for(need)
@@ -309,10 +323,6 @@ class RequestScheduler:
         call once: a caller that times or profiles single steps wraps it."""
         queue = sorted(requests, key=lambda r: (r.arrival, r.rid))
         for r in queue:
-            if r.extra:
-                raise NotImplementedError(
-                    "extra inputs belong to the vlm/encdec families: "
-                    "ROADMAP.md Queue 1 items 4 and 5")
             if self._need(r) > self.slot_capacity:
                 raise ValueError(
                     f"request {r.rid} needs capacity {self._need(r)} > "

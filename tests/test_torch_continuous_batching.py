@@ -2,7 +2,12 @@
 ``serving.kv_pool``) against the JAX package's scheduler, on the CPU, at
 the ``reduced()`` sizes of internlm2-1.8b (dense), deepseek-moe-16b (moe,
 at the default capacity factor of 1.25, each slot routed as its own token
-group) and mamba2-370m (ssm).
+group), mamba2-370m (ssm), zamba2-7b (hybrid: its sites' KV stack paged
+like a layer stack), seamless-m4t-medium (encdec: frames at admission, the
+cross-attention KV and ``src_length`` slot-resident) and internvl2-2b
+(vlm: image embeddings at admission).  The reference's encoder-decoder
+prefill is compiled with XLA's excess precision off (``_xla_strict``), so
+that its bf16 encoder rounds where its code says, as the port's does.
 
 Three contracts, for every backend, arrival order and the two-wave
 page-reuse stream:
@@ -50,6 +55,8 @@ from repro.configs.base import ShapeConfig  # noqa: E402
 from repro.core.backends import ChunkedLseAttention as RefChunked  # noqa: E402
 from repro.core.backends import PallasSplitKAttention  # noqa: E402
 from repro.kernels.decode_attention import ops as ref_decode_ops  # noqa: E402
+from repro.models import encdec as ref_encdec  # noqa: E402
+from repro.models import hybrid as ref_hybrid  # noqa: E402
 from repro.models import mamba2 as ref_mamba2  # noqa: E402
 from repro.models import moe as ref_moe  # noqa: E402
 from repro.models import transformer as ref_transformer  # noqa: E402
@@ -67,7 +74,14 @@ from repro_torch.core.backends import (  # noqa: E402
     TorchSplitKAttention,
 )
 from repro_torch.kernels.decode_attention import ops as decode_ops  # noqa: E402
-from repro_torch.models import kvcache, mamba2, moe, transformer  # noqa: E402
+from repro_torch.models import (  # noqa: E402
+    encdec,
+    hybrid,
+    kvcache,
+    mamba2,
+    moe,
+    transformer,
+)
 from repro_torch.models.registry import get_model  # noqa: E402
 from repro_torch.serving import router  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
@@ -80,6 +94,7 @@ from repro_torch.serving.kv_pool import (  # noqa: E402
     split_cache,
 )
 from repro_torch.serving.scheduler import Request, RequestScheduler  # noqa: E402
+from _xla_strict import strict_jit  # noqa: E402
 
 BLOCK_K = 4          # a small kernel block, so pool pages are a few tokens
 NUM_SLOTS = 2
@@ -88,11 +103,19 @@ KERNEL_TOL = dict(rtol=1e-5, atol=1e-5)
 
 FAMILIES = {"dense": ("internlm2-1.8b", ref_transformer, transformer),
             "moe": ("deepseek-moe-16b", ref_moe, moe),
-            "ssm": ("mamba2-370m", ref_mamba2, mamba2)}
+            "ssm": ("mamba2-370m", ref_mamba2, mamba2),
+            "hybrid": ("zamba2-7b", ref_hybrid, hybrid),
+            "encdec": ("seamless-m4t-medium", ref_encdec, encdec),
+            "vlm": ("internvl2-2b", ref_transformer, transformer)}
 # the ssm family has no decode attention: one (unused) backend
 BACKENDS = {"dense": ("dense-ref", "chunked-lse", "torch-splitk"),
             "moe": ("dense-ref", "torch-splitk"),
-            "ssm": ("dense-ref",)}
+            "ssm": ("dense-ref",),
+            "hybrid": ("dense-ref", "torch-splitk"),
+            "encdec": ("dense-ref", "torch-splitk"),
+            "vlm": ("dense-ref", "torch-splitk")}
+# the frontend input each admission carries (random from the stream's seed)
+EXTRA_KEY = {"vlm": "extra_embeds", "encdec": "frames"}
 PORT_BACKEND = {
     "dense-ref": lambda: DenseRefAttention(),
     "chunked-lse": lambda: ChunkedLseAttention(kv_chunk=3),
@@ -130,24 +153,31 @@ def family(request):
 
 
 def _mk_requests(cfg, rng, n, arrivals):
-    """Ragged prompts (2..7) and budgets (1..4), as the reference's suite."""
-    return [Request(rid=i,
+    """Ragged prompts (2..7) and budgets (1..4), as the reference's suite,
+    with the family's frontend embeddings ``[1, F, d]``."""
+    reqs = [Request(rid=i,
                     prompt=rng.integers(0, cfg.vocab_size,
                                         (int(rng.integers(2, 8)),)).astype(np.int32),
                     max_new_tokens=int(rng.integers(1, 5)),
                     arrival=int(arrivals[i]))
             for i in range(n)]
+    if cfg.family in EXTRA_KEY:
+        for r in reqs:
+            r.extra = {EXTRA_KEY[cfg.family]: rng.standard_normal(
+                (1, cfg.frontend_tokens, cfg.d_model)).astype(np.float32)}
+    return reqs
 
 
 def _ref_requests(reqs):
     return [RefRequest(rid=r.rid, prompt=r.prompt,
-                       max_new_tokens=r.max_new_tokens, arrival=r.arrival)
+                       max_new_tokens=r.max_new_tokens, extra=r.extra,
+                       arrival=r.arrival)
             for r in reqs]
 
 
 def _stream_capacity(eng, reqs):
     need = max(np.asarray(r.prompt).reshape(-1).shape[0] + r.max_new_tokens
-               for r in reqs)
+               for r in reqs) + (eng.cfg.frontend_tokens or 0)
     return eng.cache_layout(need).padded_len(need)
 
 
@@ -168,6 +198,8 @@ def diff_case(request):
                         attn_backend=PORT_BACKEND[backend]())
     ref_eng = RefEngine(ref_cfg, params=params,
                         attn_backend=REF_BACKEND[backend]())
+    if fam == "encdec":
+        ref_eng._prefill = strict_jit(ref_eng.model.prefill, static_argnums=(2,))
     reqs = _mk_requests(cfg, np.random.default_rng(7), 4, np.zeros(4, int))
     cap = _stream_capacity(eng, reqs)
     assert cap == ref_eng.cache_layout(cap).padded_len(cap)
@@ -176,7 +208,7 @@ def diff_case(request):
         res = eng.generate_stream([r], num_slots=NUM_SLOTS, max_request_len=cap)
         solo[r.rid] = (res[0].tokens, res[0].final_logits)
         g = eng.generate(np.asarray(r.prompt)[None], r.max_new_tokens,
-                         max_len=cap)
+                         extra=r.extra, max_len=cap)
         static[r.rid] = (g.tokens[0], g.prefill_logits[0])
     return eng, ref_eng, reqs, cap, solo, static
 
@@ -328,9 +360,12 @@ class TestScheduler:
                              graph=True)
         with pytest.raises(NotImplementedError, match="item 9"):
             eng.generate_stream([], mesh=object())
-        with pytest.raises(NotImplementedError, match="items 4 and 5"):
-            eng.generate_stream([Request(0, np.arange(3), 2,
-                                         extra={"frames": np.zeros(1)})])
+        # a family without a frontend ignores a request's extra inputs, as
+        # the reference's dense model does
+        plain, framed = (eng.generate_stream([Request(0, np.arange(3), 2,
+                                                      extra=extra)])[0]
+                         for extra in (None, {"frames": np.zeros(1)}))
+        np.testing.assert_array_equal(plain.tokens, framed.tokens)
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="CUDA device"):
             RequestScheduler(eng.model, eng.params, 2, 8)
@@ -519,17 +554,33 @@ def _leaves(tree, path=()):
         yield path, tree
 
 
+def _zero_extra(cfg):
+    if cfg.family not in EXTRA_KEY:
+        return {}
+    return {EXTRA_KEY[cfg.family]: torch.zeros((1, cfg.frontend_tokens,
+                                                cfg.d_model))}
+
+
 def test_cache_seq_axes_classify_like_the_reference(family):
     """The port's cache (its mamba2 conv cache a dict of x, B and C tails,
     the reference's one leaf; the moe cache's list of KV stacks, as the
     reference's) classified leaf by leaf as the reference's
-    ``seq_axis_tree`` classifies its own cache."""
+    ``seq_axis_tree`` classifies its own cache.  The hybrid cache has the
+    port's own layout: the reference's classification is mapped onto it
+    (its sites' ``kv`` and ``tail_kv`` to ``k``/``v``, ``states`` and
+    ``tail_state`` to ``conv``/``ssm``), and the two must agree."""
     fam, cfg, ref_cfg, _, port = family
     model = get_model(cfg, attn_backend="dense-ref")
-    _, cache = model.prefill(port, {"tokens": torch.zeros((1, 3), dtype=torch.long)}, 8)
+    batch = {"tokens": torch.zeros((1, 3), dtype=torch.long), **_zero_extra(cfg)}
+    _, cache = model.prefill(port, batch, 8 + (cfg.frontend_tokens or 0))
     axes = model.cache_seq_axes(cache)
     ref_axes = ref_get_model(ref_cfg).cache_seq_axes(
         cache_specs(ref_cfg, ShapeConfig("smoke", 1, 8, "decode"), abstract=True))
+    if fam == "hybrid":
+        kv, (conv, ssm) = ref_axes["kv"], ref_axes["states"]
+        assert ref_axes["tail_kv"] == kv and ref_axes["tail_state"] == (conv, ssm)
+        ref_axes = {"k": kv[0], "v": kv[1], "conv": conv, "ssm": ssm,
+                    "length": ref_axes["length"]}
     assert set(axes) == set(ref_axes)
     seen = []
     for path, ax in _leaves(axes):
@@ -541,13 +592,17 @@ def test_cache_seq_axes_classify_like_the_reference(family):
         assert ax == want, path
         seen.append((path, ax))
     growing = sorted(p for p, a in seen if a == -2)
-    if fam == "dense":
+    if fam in ("dense", "vlm", "hybrid", "encdec"):
         assert growing == [("k",), ("v",)]
     elif fam == "moe":
         assert growing == [("stacks", i, kv) for i in (0, 1) for kv in "kv"]
         assert len(ref_axes["stacks"]) == len(axes["stacks"]) == 2
     else:
         assert not growing and (("conv", "x"), None) in seen
+    if fam == "hybrid":
+        assert (("conv", "x"), None) in seen and (("ssm",), None) in seen
+    if fam == "encdec":
+        assert axes["kc"] is axes["vc"] is axes["src_length"] is None
     assert axes["length"] is None
 
 
@@ -596,19 +651,25 @@ def test_decode_backends_take_one_length_per_row(backend, dtype):
 
 
 def test_decode_step_with_per_row_lengths_matches_b1_steps(family):
-    """``transformer.decode_step`` (and moe's and mamba2's) over three rows
-    at their own lengths against each row's B = 1 step on its own cache:
-    logits and the written K and V within 1e-4, ``length`` advanced per
-    row.  The moe step routes each row as its own group."""
+    """``transformer.decode_step`` (and every other family's) over three
+    rows at their own lengths against each row's B = 1 step on its own
+    cache: logits and the written K and V within 1e-4, ``length`` advanced
+    per row (the encdec family's ``src_length`` one a row too).  The moe
+    step routes each row as its own group."""
     fam, cfg, _, _, port = family
     model = get_model(cfg, attn_backend=TorchSplitKAttention(block_k=BLOCK_K,
                                                              device="cpu"))
     rng = np.random.default_rng(5)
     cap = 12
     caches, toks = [], []
-    for n in (2, 5, 9):
+    front = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (3, cfg.frontend_tokens, cfg.d_model)).astype(np.float32))
+    for b, n in enumerate((2, 5, 9)):
         prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, n)))
-        logits, c = model.prefill(port, {"tokens": prompt}, cap)
+        extra = ({EXTRA_KEY[cfg.family]: front[b:b + 1]}
+                 if cfg.family in EXTRA_KEY else {})
+        logits, c = model.prefill(port, {"tokens": prompt, **extra},
+                                  cap + (cfg.frontend_tokens or 0))
         caches.append(c)
         toks.append(logits[:, -1:].argmax(-1))
     axes = model.cache_seq_axes(caches[0])
@@ -619,14 +680,15 @@ def test_decode_step_with_per_row_lengths_matches_b1_steps(family):
     from repro_torch.serving.kv_pool import tree_map
 
     batch = tree_map(stack, axes, *caches)
-    assert batch["length"].tolist() == [2, 5, 9]
+    F = cfg.frontend_tokens if fam == "vlm" else 0  # the image prefix
+    assert batch["length"].tolist() == [2 + F, 5 + F, 9 + F]
     solo = [model.decode_step(port, t, tree_map(lambda ax, x: x.clone(), axes, c))
             for t, c in zip(toks, caches)]
     logits, new = model.decode_step(port, torch.cat(toks), batch)
-    assert new["length"].tolist() == [3, 6, 10]
+    assert new["length"].tolist() == [3 + F, 6 + F, 10 + F]
     for b, (want, want_cache) in enumerate(solo):
         np.testing.assert_allclose(logits[b].numpy(), want[0].numpy(), **TOL)
         for (path, leaf), (_, wleaf) in zip(_leaves(new), _leaves(want_cache)):
-            if path != ("length",):
+            if leaf.dim() > 1:  # the lengths are one a row
                 np.testing.assert_allclose(leaf[:, b].numpy(), wleaf[:, 0].numpy(),
                                            err_msg=str(path), **TOL)

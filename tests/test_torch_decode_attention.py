@@ -77,7 +77,7 @@ def _np(x):
 
 
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
-@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("D", [32, 64, 112])
 @pytest.mark.parametrize("G", [1, 2, 4])
 def test_decode_mha_matches_pallas_kernel_and_oracle(G, D, dt):
     arrays = _inputs(G, D, seed=10 * G + D)
@@ -153,7 +153,10 @@ def test_plain_decode_paths_agree_and_split_kv_combines():
 # batch 2), chip_smoke.py's (long cache, G 1 and G 4 at D 64) and the GPU
 # tests'
 PLAN_SHAPES = [(640, 64), (128, 4), (32768, 256), (300, 32), (300, 16),
-               (200, 6), (1000, 4), (4096, 16), (128, 1024), (1, 1)]
+               (200, 6), (1000, 4), (4096, 16), (128, 1024), (1, 1),
+               # zamba2-7b's sites (B 8 x KV 32, D 112), seamless-m4t-medium's
+               # self and cross caches (B 8 x KV 16)
+               (640, 256), (1280, 128), (1024, 128)]
 
 
 @pytest.mark.parametrize("sms", [132, 114, 1])
@@ -236,6 +239,50 @@ def test_split_partials_merged_by_lse_match_the_plain_version(G):
         want, want_lse = ref.decode_attention_ref(q, k, v, L)
         torch.testing.assert_close(out, want, **TOL["float32"])
         torch.testing.assert_close(lse, want_lse, **TOL["float32"])
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("G", [1, 2])
+def test_d112_with_one_length_per_row_matches_the_pallas_kernel(G, dt):
+    """zamba2-7b's head dim: the plain version with ``[B]`` lengths (0, the
+    block edge, the capacity) against the Pallas kernel run row by row at
+    each row's length (interpret mode)."""
+    D, S_ = 112, 16
+    rng = np.random.default_rng(G)
+    arrays = [rng.standard_normal(shape).astype(np.float32)
+              for shape in ((3, KV * G, D), (3, KV, S_, D), (3, KV, S_, D))]
+    q, k, v = _as_torch(arrays, dt)
+    jq, jk, jv = _as_jax(arrays, dt)
+    lens = torch.tensor([0, BLOCK_K, S_], dtype=torch.int32)
+    out, lse = ops.decode_mha(q, k, v, lens)
+    for b, n in enumerate(lens.tolist()):
+        want, want_lse = ref_ops.decode_mha(
+            jq[b:b + 1], jk[b:b + 1], jv[b:b + 1], jnp.asarray(n, jnp.int32),
+            block_k=BLOCK_K, interpret=True)
+        np.testing.assert_allclose(_np(out[b:b + 1]), _np(want), **TOL[dt])
+        if n:
+            np.testing.assert_allclose(_np(lse[b:b + 1]), _np(want_lse),
+                                       **TOL[dt])
+
+
+def test_kernel_shape_gate_takes_d112_without_launching():
+    """The wrapper's gate takes zamba2's D 112 (and every D the CUDA
+    dispatch has a case for, no other), and rejects D 96 and G 3; checking
+    launches nothing."""
+    before = dict(ops.LAUNCHES)
+    assert 112 in ops.HEAD_DIMS
+    for G in ops.GROUPS:
+        for D in ops.HEAD_DIMS:
+            ops.check_kernel_shape(G, D)
+    with pytest.raises(ValueError, match="D in"):
+        ops.check_kernel_shape(1, 96)
+    with pytest.raises(ValueError, match="G = H/KV"):
+        ops.check_kernel_shape(3, 112)
+    assert ops.LAUNCHES == before
+    source = ops._SOURCE.read_text()
+    cases = {int(d) for d in __import__("re").findall(
+        r"case (\d+): return f\(Type<T>\{\}, Int<G>\{\}, Int<\d+>", source)}
+    assert cases == set(ops.HEAD_DIMS)
 
 
 def test_cache_len_tensor_and_cpu_path_counts_no_launch():

@@ -224,7 +224,8 @@ def _decode_operands(device, B, H, KV, S, D, dtype, seed):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
-@pytest.mark.parametrize("G,D", [(1, 64), (2, 128), (4, 64), (8, 128), (2, 32)])
+@pytest.mark.parametrize("G,D", [(1, 64), (2, 128), (4, 64), (8, 128), (2, 32),
+                                 (1, 112), (2, 112), (8, 112)])
 def test_decode_kernel_matches_plain(cuda, dtype, G, D):
     """A capacity that is no multiple of the kernel's key tile, and cache
     lengths 0 (the mean of V), 1, around the tile, and full."""
@@ -249,6 +250,8 @@ def test_decode_kernel_matches_plain(cuda, dtype, G, D):
     (2, 16, 2, 1000, 64),     # G 8, a capacity no multiple of 64
     (4, 4, 4, 4096, 32),      # G 1, 16 splits of 4 tiles
     (64, 16, 16, 128, 64),    # B*KV 1024: one split, no merge
+    (8, 32, 32, 640, 112),    # zamba2-7b's sites: D 112, padded row groups
+    (2, 4, 2, 300, 112),      # D 112, G 2, fp32 tiles of 36 keys
 ])
 def test_decode_kernel_at_split_boundaries_twice(cuda, dtype, B, H, KV, S, D):
     """cache_len 0 and one key either side of every split's first and last
@@ -270,6 +273,24 @@ def test_decode_kernel_at_split_boundaries_twice(cuda, dtype, B, H, KV, S, D):
                                    **DECODE_TOL[dtype])
         torch.testing.assert_close(first[1], want_lse, **DECODE_TOL[dtype])
         assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_decode_kernel_d112_takes_one_length_per_row(cuda, dtype):
+    """D 112 with ``[B]`` lengths (0, a split's edge, the capacity): each
+    row bit for bit its own launch, and within tolerance of the plain
+    version."""
+    B, H, KV, S, D = 4, 4, 4, 640, 112
+    q, k, v = _decode_operands(cuda, B, H, KV, S, D, dtype, seed=112)
+    lens = torch.tensor([0, 191, 192, 640], dtype=torch.int32, device=cuda)
+    out, lse = decode_ops.decode_mha(q, k, v, lens)
+    want, want_lse = decode_ref.decode_attention_ref(q, k, v, lens)
+    torch.testing.assert_close(out.float(), want.float(), **DECODE_TOL[dtype])
+    torch.testing.assert_close(lse, want_lse, **DECODE_TOL[dtype])
+    for b in range(B):
+        row = decode_ops.decode_mha(q, k, v, lens[b:b + 1].contiguous())
+        assert torch.equal(out[b], row[0][b]) and torch.equal(lse[b], row[1][b])
 
 
 def test_splitk_backend_on_the_card_matches_the_cpu_oracle(cuda):
@@ -311,6 +332,46 @@ def test_engine_on_the_card_generates_the_cpu_tokens(cuda):
     assert decode_ops.LAUNCHES["decode_attention"] == n0 + cfg.n_layers * 5
     want = ServingEngine(cfg, params=on_cpu, device="cpu").generate(
         prompts, max_new_tokens=5)
+    np.testing.assert_array_equal(got.tokens, want.tokens)
+    np.testing.assert_allclose(got.prefill_logits, want.prefill_logits,
+                               rtol=1e-4, atol=1e-4)
+
+
+# reduced zamba2-7b (3 sites, a tail), seamless-m4t-medium (self and cross
+# attention) and internvl2-2b (8 image embeddings): decode launches a step
+NEW_FAMILIES = {"zamba2-7b": lambda c: -(-c.n_layers // c.shared_attn_every),
+                "seamless-m4t-medium": lambda c: 2 * c.n_layers,
+                "internvl2-2b": lambda c: c.n_layers}
+
+
+@pytest.mark.parametrize("arch", sorted(NEW_FAMILIES))
+def test_new_families_on_the_card_generate_the_cpu_tokens(cuda, arch):
+    """The hybrid, encdec and vlm families, reduced, in fp32: the engine on
+    the card through the kernel and on the CPU through its plain version
+    pick the same greedy tokens (logits 1e-4), with their frontend inputs;
+    the card launches the kernel at every site (or layer, twice for the
+    encoder-decoder) of every step."""
+    from repro_torch.models.registry import get_model
+
+    cfg = get_config(arch).reduced()
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    on_card = get_model(cfg, attn_backend="dense-ref").init(gen)
+    on_card = on_card.float()
+    on_cpu = type(on_card)(cfg, dtype=torch.float32, device="cpu")
+    for dst, src in zip(on_cpu.parameters(), on_card.parameters()):
+        dst.copy_(src.cpu())
+    rng = np.random.default_rng(1)
+    prompts = rng.integers(0, cfg.vocab_size, (2, 9))
+    key = {"vlm": "extra_embeds", "encdec": "frames"}.get(cfg.family)
+    extra = ({key: rng.standard_normal((2, cfg.frontend_tokens, cfg.d_model))
+              .astype(np.float32)} if key else None)
+    n0 = decode_ops.LAUNCHES["decode_attention"]
+    got = ServingEngine(cfg, params=on_card).generate(prompts, max_new_tokens=5,
+                                                      extra=extra)
+    assert decode_ops.LAUNCHES["decode_attention"] == \
+        n0 + NEW_FAMILIES[arch](cfg) * 5
+    want = ServingEngine(cfg, params=on_cpu, device="cpu").generate(
+        prompts, max_new_tokens=5, extra=extra)
     np.testing.assert_array_equal(got.tokens, want.tokens)
     np.testing.assert_allclose(got.prefill_logits, want.prefill_logits,
                                rtol=1e-4, atol=1e-4)

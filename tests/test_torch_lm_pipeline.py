@@ -318,11 +318,10 @@ def test_unknown_engine_and_unstaged_families_rejected():
             get_stage_model(get_config(arch).reduced(), "dense-ref")
     with pytest.raises(ValueError, match="not supported"):
         get_stage_model(dataclasses.replace(cfg, family="encdec"), "dense-ref")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        get_stage_model(dataclasses.replace(cfg, family="vlm"), "dense-ref")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        run_lm_pipeline(cfg, np.zeros((1, 2), np.int32), port,
-                        extra={"extra_embeds": np.zeros(1)})
+    with pytest.raises(ValueError, match="not supported"):
+        get_stage_model(dataclasses.replace(cfg, family="hybrid"), "dense-ref")
+    vlm = get_stage_model(dataclasses.replace(cfg, family="vlm"), "dense-ref")
+    assert vlm.cfg.family == "vlm"
 
 
 def test_default_device_raises_without_a_card(monkeypatch):

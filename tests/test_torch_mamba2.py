@@ -207,7 +207,9 @@ def test_registry_router_and_layout_answer_as_the_reference(case, monkeypatch):
     assert eng.cache_layout(77).block_k == ref_eng.cache_layout(77).block_k
     assert eng.cache_layout(77).padded_len(77) == ref_eng.cache_layout(77).padded_len(77)
     for fam in ("hybrid", "encdec", "vlm"):
-        with pytest.raises(NotImplementedError, match="item"):
+        # the attention-bearing families resolve torch-splitk, which needs
+        # a card; the ssm family above resolved none
+        with pytest.raises(RuntimeError, match="CUDA device"):
             get_model(dataclasses.replace(cfg, family=fam))
 
 

@@ -108,8 +108,8 @@ def test_configs_match_the_reference():
         assert port.param_count() == ref.param_count()
     assert dataclasses.asdict(get_config("deepseek-moe-16b")) == \
         dataclasses.asdict(ref_get_config("deepseek-moe-16b"))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        get_config("zamba2-7b")
+    with pytest.raises(NotImplementedError, match="make_sparse_dnn"):
+        get_config("sparse-dnn-graphchallenge")
     with pytest.raises(KeyError):
         get_config("gpt-9")
 
@@ -271,9 +271,8 @@ def test_registry_and_engine_options():
         "fabric", 2, "queue")
     with pytest.raises(ValueError, match="unknown engine"):
         ServingEngine(cfg, device="cpu", engine="bogus")
-    hybrid = dataclasses.replace(cfg, family="hybrid")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        get_model(hybrid)
+    with pytest.raises(ValueError, match="unknown family"):
+        get_model(dataclasses.replace(cfg, family="bogus"))
 
 
 def test_cuda_defaults_raise_without_a_card(monkeypatch):
