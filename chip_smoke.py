@@ -154,7 +154,38 @@ Run from the root of a checkout.  Phases, each printed as it ends:
    ``dense-ref`` (identical tokens, logits 1e-4); and an fp32 depth cut at
    full width (7 layers, 2 sites; 2 + 2 layers; 2 layers), the card
    against the CPU (B 2, prompt 64, 8 new: identical tokens, 1e-4);
-13. one JSON line with each kernel's time, launches on its path, bound,
+13. ``run_fsi`` over the sharded fleet backend (``torch-bsr-sharded``) on
+   phase 3's net, inputs and partition (``SHARDED_RUNS``): the queue
+   channel with one shard fused (8 fleet launches) and vmap (512 per-worker
+   launches, 64 a layer), and the object channel over ``[cuda:0] * 3``
+   fused (P 64 padded to 66, 24 fleet launches); each output bit for bit
+   phase 3's ``torch-bsr`` output on its channel and within 1e-4 of
+   ``dense_inference``, FLOPs, messages and raw bytes exactly
+   ``numpy-fast``'s, cost within 5%; each run's host wall beside
+   ``torch-bsr``'s (``[run_fsi] sharded`` lines);
+14. training internlm2-1.8b at full width through ``Trainer.fit`` (AdamW,
+   remat on): whether ``mm(bf16, out_dtype=fp32)`` has a derivative on this
+   torch (the port does not rely on it); (a) bf16, 24 layers, 8 steps of
+   8 x 512 tokens: finite losses, the first within 2% of a random init's
+   expected loss (ln of the padded vocabulary plus half the logits'
+   variance, 0.02^2 x d_model), every later loss below the first, ms a
+   step between CUDA events (the median of the 6 steps that are neither
+   the warm-up nor the profiled one), tokens/s, the bound of the weight
+   products, peak memory, the busy share of one step from
+   ``torch.profiler``; (b) at a 2-layer cut at full width, batch 2 x 128,
+   the card against the CPU: in fp32 the loss within 1e-5 relative, every
+   gradient leaf within 1e-4 of its largest magnitude, AdamW's update
+   given the CPU's gradients within 1e-6; in bf16 (the card's products
+   differentiated by ``layers._ProductAcc``, the CPU's by autograd through
+   the widened operands) the loss within 2^-8 relative and every gradient
+   leaf, bf16 on both sides, within 2e-2 of its largest magnitude, and a
+   control whose square weights' cotangents are transposed refused by
+   that gate; (c) bf16 at the cut, batch 8 x 512, under
+   ``torch.use_deterministic_algorithms``: 4 steps uninterrupted against
+   a run stopped after 2 (checkpoint at 2 in a temporary directory) and
+   resumed to 4: params, AdamW's m, v and step, and the losses bit for
+   bit (``[train]`` lines);
+15. one JSON line with each kernel's time, launches on its path, bound,
    plain-version time and one library call's time (the BSR kernels' at
    layer 2, and at each timed layer under ``by_layer``; the decode
    kernel's launches on the graphed stream, counted in the profiler's
@@ -166,7 +197,9 @@ Run from the root of a checkout.  Phases, each printed as it ends:
    ``encdec_generate_launches`` and ``vlm_generate_launches``, their times
    at the path shapes under ``hybrid_decode_shapes`` (D 112) and
    ``encdec_decode_shapes`` (the cross cache), and each phase's numbers
-   under ``hybrid``, ``encdec`` and ``vlm``).
+   under ``hybrid``, ``encdec`` and ``vlm``; the BSR kernels' launches in
+   phase 13's runs, with each run's host wall, under ``sharded``, and
+   counted in ``launches``).
 
 Times are medians of single calls between two CUDA events; below ~0.1 ms
 that is mostly the wrapper's host time, so the decode kernel at the serving
@@ -186,6 +219,8 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -195,7 +230,13 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
-import torch
+
+# cuBLAS reads its workspace configuration when its first handle is made;
+# phase 14's restart check runs under deterministic algorithms, which want
+# this one (the size PyTorch picks on Hopper by default)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import torch  # noqa: E402
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -304,6 +345,25 @@ FAMILY_PHASES = {
                          timed={}, pipeline=(4, 128, 8)),
 }
 FAMILY_CPU = (2, 64, 8)
+# run_fsi over torch-bsr-sharded (phase 13): (channel, shards of the one
+# card, dispatch); P 64 pads to 66 at 3 shards
+SHARDED_RUNS = (("queue", 1, "fused"), ("queue", 1, "vmap"),
+                ("object", 3, "fused"))
+# training internlm2-1.8b (phase 14): batch, sequence; the steps at full
+# depth (the first a warm-up, one profiled, the rest timed) and of the
+# restart; the depth cut of the card-vs-CPU checks and of the restart; the
+# CPU checks' batch and sequence; the fp32 check's loss (relative) and
+# gradient (relative to each leaf's largest magnitude) tolerances and
+# AdamW's update's; the bf16 check's, one bf16 rounding (2^-8) of the loss
+# and 2e-2 of each leaf's largest magnitude; the first bf16 loss's
+# distance from a random init's expected loss
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_CUT = 8, 512, 2
+TRAIN_FULL_STEPS, TRAIN_PROFILE_STEP, TRAIN_STEPS = 8, 2, 4
+TRAIN_CPU = (2, 128)
+TRAIN_LOSS_TOL, TRAIN_GRAD_REL = 1e-5, 1e-4
+TRAIN_UPDATE_TOL = dict(rtol=1e-6, atol=1e-6)
+TRAIN_BF16_LOSS_REL, TRAIN_BF16_GRAD_REL = 2.0 ** -8, 2e-2
+FIRST_LOSS_REL = 0.02
 FAMILY_STREAM = (6, 4, (32, 128), (4, 16))
 # builds of a kernel source with one piece of text replaced, each built
 # beside the others at the start: name -> (source, old, new).  The BSR
@@ -602,7 +662,9 @@ def only(counts: dict, **want) -> dict:
 def fsi_phases(dev, peaks, card):
     """Phases 2 and 3: the BSR kernels against their plain versions at one
     layer of each block pattern, then ``run_fsi`` through them.  Returns
-    (timing, launches, max errors)."""
+    (timing, launches, max errors, the FSI runs for phase 13: the net, x0,
+    ``dense_inference``'s output, the partition and, by channel, the
+    ``torch-bsr`` output, the ``numpy-fast`` run and the host wall)."""
     from repro_torch.core.backends import TorchBsrBackend
     from repro_torch.core.fsi import prepare_worker_artifacts
     from repro_torch.core.partitioner import partition_network
@@ -860,6 +922,7 @@ def fsi_phases(dev, peaks, card):
     # ---- 3. the FSI path -------------------------------------------------
     dense = dense_inference(net, x0)
     launches = {key: 0 for key in ops.LAUNCHES}
+    fsi_runs = {}
     runs = [("queue", dict(P=P, channel="queue", partition=partition)),
             ("object", dict(P=P, channel="object", partition=partition)),
             ("serial", dict(channel="serial"))]
@@ -893,6 +956,7 @@ def fsi_phases(dev, peaks, card):
         check(rel_cost <= 0.05, f"{ch}: cost differs by {rel_cost:.3%}")
         for key in launches:
             launches[key] += counts_run[key]
+        fsi_runs[ch] = (out, want, t_gpu)
         log(f"[run_fsi] {ch}: torch-bsr {t_gpu:.2f} s host wall, numpy-fast "
             f"{t_np:.2f} s; max |out - dense_inference| {err:.3e}; "
             f"flops {got.metrics.get('flops_total', got.metrics.get('flops'))}, "
@@ -904,7 +968,8 @@ def fsi_phases(dev, peaks, card):
     log(f"[memory] FSI phases: peak device allocation "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     errs = {"bsr_spmm_fused": max(err_fused), "bsr_spmm_fleet": max(err_fleet)}
-    return timing, launches, errs
+    fsi = dict(net=net, x0=x0, dense=dense, partition=partition, runs=fsi_runs)
+    return timing, launches, errs, fsi
 
 
 # ---------------------------------------------------------------------------
@@ -3216,6 +3281,422 @@ def family_phase(dev, peaks, card, arch):
 
 
 # ---------------------------------------------------------------------------
+# 13. run_fsi over the sharded fleet backend
+# ---------------------------------------------------------------------------
+
+
+def sharded_phase(dev, card, fsi) -> dict:
+    """``run_fsi`` over ``torch-bsr-sharded`` (``SHARDED_RUNS``) on phase
+    3's net, inputs and partition: each output bit for bit phase 3's
+    ``torch-bsr`` output on the same channel and within 1e-4 of
+    ``dense_inference``; FLOPs, messages and raw exchange bytes exactly
+    ``numpy-fast``'s, cost within 5%; the launches of each run counted from
+    0 (fused: one fleet launch a device block a layer; vmap: one per-worker
+    launch a worker a layer).  Returns, by run, its launches and host
+    wall."""
+    from repro_torch.core.backends import TorchBsrShardedBackend
+    from repro_torch.faas.simulator import run_fsi
+
+    out = {}
+    for ch, d, dispatch in SHARDED_RUNS:
+        plain_out, want, t_plain = fsi["runs"][ch]
+        mesh = [dev] * d
+        p_pad = -(-P // d) * d
+        want_counts = ({"bsr_spmm_fleet": d * LAYERS} if dispatch == "fused"
+                       else {"bsr_spmm_fused": p_pad * LAYERS})
+        reset_counts()
+        t = time.time()
+        got = run_fsi(fsi["net"], fsi["x0"], P=P, channel=ch,
+                      partition=fsi["partition"], mesh=mesh,
+                      compute_backend=TorchBsrShardedBackend(dispatch=dispatch))
+        wall = time.time() - t
+        counts = read_counts()
+        tag = f"{ch} D={d} {dispatch}"
+        check(np.array_equal(got.output, plain_out),
+              f"sharded {tag}: output differs from torch-bsr's")
+        err = float(np.abs(got.output - fsi["dense"]).max())
+        np.testing.assert_allclose(got.output, fsi["dense"], **E2E_TOL)
+        for key in ("flops_total", "messages"):
+            check(got.metrics.get(key) == want.metrics.get(key),
+                  f"sharded {tag}: {key}")
+        check(got.raw_exchange_bytes == want.raw_exchange_bytes,
+              f"sharded {tag}: raw exchange bytes")
+        rel_cost = abs(got.cost.total - want.cost.total) / want.cost.total
+        check(rel_cost <= 0.05, f"sharded {tag}: cost differs by {rel_cost:.3%}")
+        check(counts == only(counts, **want_counts),
+              f"sharded {tag}: launches {counts}, expected {want_counts}")
+        log(f"[run_fsi] sharded {tag} (P {P} padded to {p_pad}): "
+            f"{wall:.2f} s host wall, torch-bsr {t_plain:.2f} s on the same "
+            f"channel; output bit for bit torch-bsr's, max |out - "
+            f"dense_inference| {err:.3e}; flops, messages, raw bytes equal to "
+            f"numpy-fast's, cost {got.cost.total:.6e} vs "
+            f"{want.cost.total:.6e}; launches {only(counts, **want_counts)} "
+            f"on {card}")
+        out[tag] = dict(launches=want_counts, wall_s=wall,
+                        torch_bsr_wall_s=t_plain)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 14. training internlm2-1.8b through Trainer.fit
+# ---------------------------------------------------------------------------
+
+
+def timed_trainer(cls):
+    """A subclass of the trainer ``cls`` whose train step is timed between
+    CUDA events (``step_ms``), and profiled by ``torch.profiler`` at step
+    index ``profile_step`` (``profile``: device ms, kernels, wall ms)."""
+    class Timed(cls):
+        profile_step = None
+
+        def _build_step(self):
+            from torch.profiler import ProfilerActivity, profile
+
+            super()._build_step()
+            inner = self.train_step
+            self.step_ms, self.profile = [], None
+
+            def step(*args):
+                if len(self.step_ms) == self.profile_step:
+                    torch.cuda.synchronize()
+                    with profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA]) as prof:
+                        t = time.perf_counter()
+                        result = inner(*args)
+                        torch.cuda.synchronize()
+                        wall = (time.perf_counter() - t) * 1e3
+                    rows = device_rows(prof)
+                    self.profile = dict(
+                        device_ms=sum(us for _, us, _ in rows) / 1e3,
+                        kernels=sum(n for _, _, n in rows), wall_ms=wall,
+                        top=rows[:8])
+                    self.step_ms.append(None)
+                    return result
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                result = inner(*args)
+                e1.record()
+                e1.synchronize()
+                self.step_ms.append(e0.elapsed_time(e1))
+                return result
+
+            self.train_step = step
+    return Timed
+
+
+def train_bound(cfg, tokens: int, peaks):
+    """The least time of one training step (forward, the recomputed forward
+    under remat, backward) of ``cfg`` on ``tokens`` tokens: each weight
+    product 2 FLOPs a weight a token a pass; the two forward passes in bf16
+    at the tensor-core peak, the backward's two products a weight in fp32
+    outside the tensor cores (the port differentiates as the reference's
+    ``dot_general`` transposes: fp32 cotangents against widened weights,
+    with TF32 off).  Attention, norms, the loss and the optimizer left out.
+    Returns (ms, matmul weights)."""
+    d, V = cfg.d_model, cfg.padded_vocab()
+    per_layer = cfg._attn_params() + cfg._dense_ffn_params()
+    weights = cfg.n_layers * per_layer + V * d       # the unembedding too
+    fwd = 2.0 * weights * tokens
+    return (2 * fwd / peaks[2] + 2 * fwd / peaks[1]) * 1e3, weights
+
+
+def train_bf16_check(dev, cut) -> None:
+    """Phase 14 (b) in bf16: the loss and every gradient leaf of the
+    ``cut`` model on the card, whose bf16 products are differentiated by
+    ``layers._ProductAcc``, against the CPU's, where autograd differentiates
+    the widened operands: the same semantics (each cotangent product in
+    fp32, rounded once to its operand's dtype) in another summation order.
+    Then a control whose backward transposes the cotangent of every square
+    weight (wq and wo at d_model 2048), which the gradient gate must
+    refuse."""
+    import copy
+
+    from repro_torch.models import layers
+    from repro_torch.models.registry import get_model
+    from repro_torch.training.train_state import value_and_grad
+
+    B, S = TRAIN_CPU
+    api = get_model(cut, attn_backend="dense-ref")
+    model_cpu = api.init(torch.Generator().manual_seed(SEED))
+    model_dev = copy.deepcopy(model_cpu).to(dev)
+    model_cpu.requires_grad_(True)
+    model_dev.requires_grad_(True)
+    check({p.dtype for p in model_dev.parameters()} == {torch.bfloat16},
+          "the bf16 check's params are not all bf16")
+    tok = np.random.default_rng(SEED).integers(
+        0, cut.vocab_size, size=(B, S)).astype(np.int32)
+    batch = {"tokens": torch.from_numpy(tok), "labels": torch.from_numpy(tok)}
+    batch_dev = {k: v.to(dev) for k, v in batch.items()}
+    t = time.time()
+    loss_c, g_c = value_and_grad(api.loss_fn, model_cpu, batch,
+                                 api.ref_leaves(model_cpu))
+    t_cpu = time.time() - t
+
+    def card():
+        return value_and_grad(api.loss_fn, model_dev, batch_dev,
+                              api.ref_leaves(model_dev))
+
+    def leaf_errs(g):
+        out = {}
+        for key, leaf in g_c.items():
+            want = leaf.stacked().float()
+            got = g[key].stacked().float().cpu()
+            out[key] = float((got - want).abs().max()) / max(
+                float(want.abs().max()), 1e-30)
+        return out
+
+    loss_d, g_d = card()
+    check(all(leaf.stacked().dtype == torch.bfloat16 for leaf in g_d.values()),
+          "a bf16 parameter's gradient on the card is not bf16")
+    rel_loss = abs(float(loss_d) / float(loss_c) - 1)
+    check(rel_loss <= TRAIN_BF16_LOSS_REL, f"bf16 loss card {float(loss_d)} "
+          f"vs cpu {float(loss_c)}: {rel_loss:.3e}")
+    errs = leaf_errs(g_d)
+    for key, err in errs.items():
+        check(err <= TRAIN_BF16_GRAD_REL, f"bf16 gradient {key}: {err:.3e} "
+              f"of its largest magnitude")
+    worst = max(errs, key=errs.get)
+
+    right = layers._ProductAcc
+
+    class Transposed(right):
+        @staticmethod
+        def backward(ctx, g):
+            gx, gw = right.backward(ctx, g)
+            if gw is not None and gw.shape[-1] == gw.shape[-2]:
+                gw = gw.transpose(-1, -2)
+            return gx, gw
+
+    layers._ProductAcc = Transposed
+    try:
+        _, g_x = card()
+    finally:
+        layers._ProductAcc = right
+    ctrl = leaf_errs(g_x)
+    refused = sorted(k for k, e in ctrl.items() if e > TRAIN_BF16_GRAD_REL)
+    check(refused, "the bf16 gradient gate does not refuse the control")
+    log(f"[train] bf16 {cut.n_layers}-layer cut at full width, batch {B} x "
+        f"{S}: loss card {float(loss_d):.7f} vs cpu {float(loss_c):.7f} "
+        f"({rel_loss:.3e} relative, tolerance {TRAIN_BF16_LOSS_REL:.3e}); "
+        f"every gradient leaf bf16 and within {errs[worst]:.3e} of its "
+        f"largest magnitude (tolerance {TRAIN_BF16_GRAD_REL}; the worst "
+        f"{'/'.join(worst)}); the control with square weights' cotangents "
+        f"transposed: {', '.join('/'.join(k) + f' {ctrl[k]:.3e}' for k in refused)}"
+        f" refused; the CPU's forward and backward {t_cpu:.1f} s")
+    del model_cpu, model_dev, g_c, g_d, g_x
+    torch.cuda.empty_cache()
+
+
+def train_phase(dev, peaks, card) -> None:
+    """Phase 14: internlm2-1.8b at full width through ``Trainer.fit``
+    (AdamW, remat on): (a) bf16, full depth, ``TRAIN_FULL_STEPS`` steps of
+    ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens, timed, profiled, peak memory;
+    (b) at a ``TRAIN_CUT``-layer cut, the card against the CPU: in fp32 the
+    loss, every gradient leaf, and AdamW's update given the CPU's
+    gradients, in bf16 the loss and every gradient leaf
+    (:func:`train_bf16_check`); (c) restart at the cut in bf16 under
+    deterministic algorithms, bit for bit an uninterrupted run."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.models.registry import get_model
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training.trainer import Trainer, TrainerConfig
+    from repro_torch.training.train_state import value_and_grad
+
+    # the derivative of a bf16 product with an fp32 output (``mm.dtype``),
+    # which the port does not rely on (``layers._ProductAcc``)
+    a = torch.randn(64, 64, device=dev, dtype=torch.bfloat16,
+                    requires_grad=True)
+    b = torch.randn(64, 64, device=dev, dtype=torch.bfloat16)
+    try:
+        torch.mm(a, b, out_dtype=torch.float32).sum().backward()
+        log(f"[train] torch {torch.__version__}: mm(bf16, out_dtype=fp32) "
+            f"has a derivative; its input gradient is {a.grad.dtype}")
+    except (RuntimeError, NotImplementedError) as e:
+        log(f"[train] torch {torch.__version__}: mm(bf16, out_dtype=fp32) has "
+            f"no derivative: {type(e).__name__}: "
+            f"{str(e).splitlines()[0][:200]}")
+    del a, b
+
+    cfg = get_config(ARCH)
+    shape = ShapeConfig("train", seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                        kind="train")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    bound_ms, weights = train_bound(cfg, tokens, peaks)
+    log(f"[config] training {ARCH}: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab_size} (padded {cfg.padded_vocab()}), "
+        f"{cfg.param_count() / 1e9:.3f} B params ({weights / 1e9:.3f} B in "
+        f"weight products), bf16 params, AdamW, remat {cfg.remat}; batch "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens from the step-keyed pipeline, "
+        f"seed {SEED}")
+
+    # ---- (a) bf16, full depth ----
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tr = timed_trainer(Trainer)(cfg, shape, TrainerConfig(
+        total_steps=TRAIN_FULL_STEPS, ckpt_dir=None), seed=SEED, device=dev)
+    tr.profile_step = TRAIN_PROFILE_STEP
+    t = time.time()
+    hist = tr.fit()
+    wall = time.time() - t
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = hist["loss"]
+    check(len(losses) == TRAIN_FULL_STEPS and all(map(math.isfinite, losses)),
+          f"training losses {losses}")
+    check(max(losses[1:]) < losses[0],
+          f"training losses {losses} do not all fall below the first")
+    # a random init's expected first loss: ln(padded vocab) plus half the
+    # logits' variance, (0.02 * sqrt(d_model))^2 for unit-RMS states against
+    # N(0, 0.02^2) unembedding rows
+    expected = math.log(cfg.padded_vocab()) + 0.5 * (0.02 ** 2) * cfg.d_model
+    rel = abs(losses[0] / expected - 1)
+    check(rel <= FIRST_LOSS_REL,
+          f"first loss {losses[0]} is {rel:.2%} from the init's {expected:.4f}")
+    timed = [ms for ms in tr.step_ms[1:] if ms is not None]
+    step_ms = statistics.median(timed)
+    prof = tr.profile
+    busy = None if prof is None or prof["device_ms"] <= 0 else \
+        prof["device_ms"] / step_ms
+    log(f"[train] {ARCH} bf16 full depth, {TRAIN_FULL_STEPS} steps through "
+        f"Trainer.fit: losses {[round(x, 4) for x in losses]} (first "
+        f"{losses[0] / math.log(cfg.vocab_size) - 1:+.2%} from ln("
+        f"{cfg.vocab_size}) = {math.log(cfg.vocab_size):.4f}, {rel:.2%} from "
+        f"the random init's {expected:.4f}); step ms {[fmt_ms(x) for x in tr.step_ms]}"
+        f" (the first includes the warm-up; the profiled one not timed); "
+        f"median of the other {len(timed)} {step_ms:.1f} ms, "
+        f"{tokens / step_ms * 1e3:.0f} "
+        f"tokens/s; bound {bound_ms:.1f} ms (the weight products: forward "
+        f"and recompute in bf16, backward in fp32), {bound_ms / step_ms:.1%} "
+        f"of it; peak device memory {peak:.2f} GB; fit wall {wall:.1f} s on "
+        f"{card}")
+    if busy is None:
+        log("[profile] training step: no device time in the profiler's trace:"
+            " not measured")
+    else:
+        log(f"[profile] training step {TRAIN_PROFILE_STEP}: "
+            f"{prof['device_ms']:.1f}"
+            f" ms device time over {prof['kernels']} kernels, {prof['wall_ms']:.1f}"
+            f" ms wall under the profiler; device busy {busy:.1%} of the "
+            f"unprofiled {step_ms:.1f} ms step")
+        for key, us, n in prof["top"]:
+            log(f"  {us / 1e3:9.3f} ms  {n:6d} x  {key[:90]}")
+    del tr, hist
+    torch.cuda.empty_cache()
+
+    # ---- (b) fp32 at a depth cut, the card against the CPU ----
+    cut = dataclasses.replace(cfg, n_layers=TRAIN_CUT)
+    B, S = TRAIN_CPU
+    api_cpu = get_model(cut, attn_backend="dense-ref")
+    api_dev = get_model(cut, attn_backend="dense-ref")
+    model_cpu = api_cpu.init(torch.Generator().manual_seed(SEED)).float()
+    model_dev = copy.deepcopy(model_cpu).to(dev)
+    model_cpu.requires_grad_(True)
+    model_dev.requires_grad_(True)
+    rng = np.random.default_rng(SEED)
+    tok = rng.integers(0, cut.vocab_size, size=(B, S)).astype(np.int32)
+    batch = {"tokens": torch.from_numpy(tok), "labels": torch.from_numpy(tok)}
+    t = time.time()
+    loss_c, g_c = value_and_grad(api_cpu.loss_fn, model_cpu, batch,
+                                 api_cpu.ref_leaves(model_cpu))
+    t_cpu = time.time() - t
+    loss_d, g_d = value_and_grad(api_dev.loss_fn, model_dev,
+                                 {k: v.to(dev) for k, v in batch.items()},
+                                 api_dev.ref_leaves(model_dev))
+    rel_loss = abs(float(loss_d) / float(loss_c) - 1)
+    check(rel_loss <= TRAIN_LOSS_TOL, f"fp32 loss card {float(loss_d)} vs "
+          f"cpu {float(loss_c)}: {rel_loss:.3e}")
+    worst = 0.0
+    for key, leaf in g_c.items():
+        want = leaf.stacked()
+        got = g_d[key].stacked().cpu()
+        err = float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                    1e-30)
+        check(err <= TRAIN_GRAD_REL, f"fp32 gradient {key}: {err:.3e} of its "
+              f"largest magnitude")
+        worst = max(worst, err)
+    # AdamW one step on each side, given the CPU's gradients
+    sched = opt_mod.get_schedule("cosine", 3e-4, 2, TRAIN_STEPS)
+    tree_c, tree_d = api_cpu.ref_leaves(model_cpu), api_dev.ref_leaves(model_dev)
+    with torch.no_grad():  # the same starting params on both sides
+        for key, leaf in tree_c.items():
+            tree_d[key].assign(leaf.stacked().to(dev))
+    adam = opt_mod.AdamW(sched)
+    g_dev = {k: leaf.map(lambda g: g.to(dev)) for k, leaf in g_c.items()}
+    adam.update(g_c, adam.init(tree_c), tree_c)
+    adam.update(g_dev, adam.init(tree_d), tree_d)
+    upd_err = 0.0
+    for key, leaf in tree_c.items():
+        want = leaf.stacked().detach()
+        got = tree_d[key].stacked().detach().cpu()
+        torch.testing.assert_close(got, want, **TRAIN_UPDATE_TOL)
+        upd_err = max(upd_err, float((got - want).abs().max()))
+    log(f"[train] fp32 {TRAIN_CUT}-layer cut at full width, batch {B} x {S}: "
+        f"loss card {float(loss_d):.7f} vs cpu {float(loss_c):.7f} "
+        f"({rel_loss:.3e} relative, tolerance {TRAIN_LOSS_TOL}); every "
+        f"gradient leaf within {worst:.3e} of its largest magnitude "
+        f"(tolerance {TRAIN_GRAD_REL}); AdamW's update given the CPU's "
+        f"gradients max |card - cpu| {upd_err:.3e} (tolerance 1e-6); the "
+        f"CPU's forward and backward {t_cpu:.1f} s")
+    del model_cpu, model_dev, g_c, g_d, g_dev, tree_c, tree_d
+    torch.cuda.empty_cache()
+    train_bf16_check(dev, cut)
+
+    # ---- (c) restart at the cut, bf16, bit for bit ----
+    cut_shape = ShapeConfig("train", seq_len=TRAIN_SEQ,
+                            global_batch=TRAIN_BATCH, kind="train")
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            def trainer(**kw):
+                return Trainer(cut, cut_shape, TrainerConfig(
+                    total_steps=TRAIN_STEPS, ckpt_every=2, **kw), seed=SEED,
+                    device=dev)
+            full = trainer()
+            h_full = full.fit()
+            t = time.time()
+            trainer(ckpt_dir=tmp, stop_after=2).fit()
+            resumed = trainer(ckpt_dir=tmp)
+            h_res = resumed.fit(resume=True)
+            t_ckpt = time.time() - t
+            on_disk = sum(f.stat().st_size for f in Path(tmp).rglob("*.npy"))
+            free = shutil.disk_usage(tmp).free
+    except RuntimeError as e:
+        log(f"[train] restart check: an op raised under deterministic "
+            f"algorithms: {str(e).splitlines()[0]}")
+        raise
+    finally:
+        torch.use_deterministic_algorithms(False)
+    check(h_res["step"] == [2, 3], f"resumed steps {h_res['step']}")
+    check(h_res["loss"] == h_full["loss"][2:],
+          f"resumed losses {h_res['loss']} vs {h_full['loss'][2:]}")
+    a = dict(full.params.named_parameters())
+    b = dict(resumed.params.named_parameters())
+    for name in a:
+        check(torch.equal(a[name], b[name]), f"restart: {name} differs")
+    for moment in ("m", "v"):
+        for key, leaf in full.opt_state[moment].items():
+            check(torch.equal(leaf.stacked(),
+                              resumed.opt_state[moment][key].stacked()),
+                  f"restart: AdamW {moment} of {key} differs")
+    check(int(full.opt_state["step"]) == int(resumed.opt_state["step"])
+          == TRAIN_STEPS, f"restart: AdamW step {int(full.opt_state['step'])} "
+          f"vs {int(resumed.opt_state['step'])}")
+    log(f"[train] restart, bf16 {TRAIN_CUT}-layer cut, batch {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ}, deterministic algorithms: {TRAIN_STEPS} steps "
+        f"uninterrupted == stop after 2 + resume to {TRAIN_STEPS}, params, "
+        f"AdamW's m, v and step ({TRAIN_STEPS}) and losses {h_res['loss']} "
+        f"bit for bit; the crashed "
+        f"and resumed runs with their checkpoints {t_ckpt:.1f} s "
+        f"({on_disk / 1e9:.2f} GB of .npy in two steps, removed after; "
+        f"{free / 1e9:.0f} GB were free beside them)")
+    del full, resumed
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 
 
 def build_all():
@@ -3282,7 +3763,19 @@ def main() -> int:
         f"{peaks[2] / 1e12} TFLOP/s bf16")
     build_all()
 
-    timing, launches, errs = fsi_phases(dev, peaks, card)
+    timing, launches, errs, fsi = fsi_phases(dev, peaks, card)
+    t = time.time()
+    sharded = sharded_phase(dev, card, fsi)
+    del fsi
+    for key in ("bsr_spmm_fused", "bsr_spmm_fleet"):
+        timing[key]["sharded"] = {
+            tag: dict(launches=run["launches"].get(key, 0),
+                      wall_s=run["wall_s"],
+                      torch_bsr_wall_s=run["torch_bsr_wall_s"])
+            for tag, run in sharded.items()}
+        launches[key] += sum(run["launches"].get(key, 0)
+                             for run in sharded.values())
+    log(f"[sharded] phase {time.time() - t:.1f} s")
     timing["decode_attention"], errs["decode_attention"] = decode_phase(
         dev, peaks, card)
     launches["decode_attention"] = serve_phase(dev, card)
@@ -3311,7 +3804,11 @@ def main() -> int:
             key: summary})
         errs["decode_attention"] = max(errs["decode_attention"], err)
 
-    # ---- 13. kernels line ------------------------------------------------
+    t = time.time()
+    train_phase(dev, peaks, card)
+    log(f"[train] phase {time.time() - t:.1f} s")
+
+    # ---- 15. kernels line ------------------------------------------------
     kernels = [dict(name=k, route="cuda", source=SOURCES[k],
                     replaces=REPLACES[k], launches=launches[k],
                     max_abs_err=errs[k], **timing[k])

@@ -20,6 +20,13 @@ backend actually runs the numbers.  This module makes that choice pluggable:
   ONE kernel launch serves the whole simulated fleet per layer.  It runs on
   ``"cuda"`` unless constructed with ``device="cpu"``, where the kernels'
   plain PyTorch versions run instead.
+* ``torch-bsr-sharded`` — the same fleet panel split over a worker "mesh",
+  a list of devices (``launch.mesh.make_worker_mesh``): the worker axis is
+  padded with zero workers to a multiple of the mesh size D, and each
+  device holds and runs its block of ``p_pad / D`` workers, one fleet
+  kernel launch a block (``dispatch="fused"``) or one per-worker kernel
+  launch a worker (``dispatch="vmap"``).  ``run_fsi(..., mesh=...)``
+  threads the mesh through ``with_mesh``.
 
 Backends only change how the arithmetic is executed — FLOP charging, message
 accounting and memory high-water marks are computed by the caller from the
@@ -50,6 +57,7 @@ __all__ = [
     "NumpyCsrBackend",
     "NumpyFastBackend",
     "TorchBsrBackend",
+    "TorchBsrShardedBackend",
     "BACKEND_NAMES",
     "KVCacheLayout",
     "cache_layout_for",
@@ -284,18 +292,169 @@ class TorchBsrBackend:
     def fleet_apply(
         self, fleet_state: _TorchBsrFleetState, xs: Sequence[np.ndarray], bias: float
     ) -> List[np.ndarray]:
-        from repro_torch.kernels.bsr_spmm.ops import bsr_spmm_fleet
-
+        """Pack the workers' inputs into one host panel of
+        :meth:`_fleet_rows` rows (rows past ``len(xs)`` stay zero), run the
+        layer (:meth:`_fleet_launch`) and cut each worker's output to its
+        rows."""
         P = len(xs)
         batch = xs[0].shape[1]
-        X = np.zeros((P, fleet_state.n_pad, batch), dtype=np.float32)
+        X = np.zeros((self._fleet_rows(fleet_state, P), fleet_state.n_pad, batch),
+                     dtype=np.float32)
         for i, x in enumerate(xs):
             X[i, : x.shape[0]] = x
-        y = bsr_spmm_fleet(
-            fleet_state.blocks, fleet_state.cols, fleet_state.counts,
-            self._to_device(X), bias=float(bias), clip=self.clip,
-        ).cpu().numpy()
+        y = self._fleet_launch(fleet_state, X, float(bias))
         return [y[i, : fleet_state.m[i]] for i in range(P)]
+
+    def _fleet_rows(self, fleet_state, P: int) -> int:
+        return P
+
+    def _fleet_launch(self, fleet_state: _TorchBsrFleetState, X: np.ndarray,
+                      bias: float) -> np.ndarray:
+        from repro_torch.kernels.bsr_spmm.ops import bsr_spmm_fleet
+
+        return bsr_spmm_fleet(
+            fleet_state.blocks, fleet_state.cols, fleet_state.counts,
+            self._to_device(X), bias=bias, clip=self.clip,
+        ).cpu().numpy()
+
+
+@dataclasses.dataclass
+class _TorchBsrShardedFleetState:
+    """One layer's fleet panel padded to ``p_pad`` workers (a multiple of
+    the mesh size) and split into the mesh's device blocks: ``blocks[d]``,
+    ``cols[d]``, ``counts[d]`` hold workers ``d * p_pad / D`` up to the next
+    block, on ``mesh[d]``, from prepare time on."""
+
+    blocks: List[torch.Tensor]  # f32[p_pad / D, NBR, K, bm, bn] each
+    cols: List[torch.Tensor]    # i32[p_pad / D, NBR, K] each
+    counts: List[torch.Tensor]  # i32[p_pad / D, NBR] each
+    m: List[int]
+    n: List[int]
+    n_pad: int
+    p_pad: int
+
+
+class TorchBsrShardedBackend(TorchBsrBackend):
+    """``torch-bsr``'s fleet mode over a worker mesh (the reference's
+    ``pallas-bsr-sharded``).
+
+    The per-worker artifacts and ``apply`` are :class:`TorchBsrBackend`'s,
+    run on the mesh's first device; only the fleet dispatch differs.  The
+    stacked ``[P, ...]`` panel is padded with all-zero workers to ``p_pad =
+    ceil(P / D) * D`` (their ``counts`` are 0 and their outputs never read)
+    and split into D blocks of ``p_pad / D`` workers, block ``d`` resident on
+    ``mesh[d]``.  A layer runs every block on its device:
+
+    * ``dispatch="fused"`` (the default) — one launch of the fleet kernel a
+      block, its K loop bounded by the per-row counts;
+    * ``dispatch="vmap"`` — one launch of the per-worker kernel a worker,
+      the reference's vmap of the single-worker body within a shard.
+
+    Both give the same bits, and the same as ``torch-bsr``'s fleet path.
+    ``mesh`` defaults to every visible CUDA device
+    (:func:`repro_torch.launch.mesh.make_worker_mesh`), resolved at first
+    use, so a default backend raises there where no card is present.
+    """
+
+    name = "torch-bsr-sharded"
+
+    def __init__(
+        self,
+        block_shape: Tuple[int, int] = (32, 32),
+        clip: float = ACTIVATION_CLIP,
+        mesh: Optional[Sequence[Any]] = None,
+        dispatch: str = "fused",
+    ):
+        if dispatch not in ("fused", "vmap"):
+            raise ValueError(
+                f"dispatch must be 'fused' or 'vmap', got {dispatch!r}")
+        self.block_shape = tuple(block_shape)
+        self.clip = clip
+        self.dispatch = dispatch
+        self._mesh = None if mesh is None else [
+            _require_device(self.name, d) for d in mesh]
+        if self._mesh is not None and not self._mesh:
+            raise ValueError("a worker mesh needs at least one device")
+
+    @property
+    def mesh(self) -> List[torch.device]:
+        if self._mesh is None:
+            from repro_torch.launch.mesh import make_worker_mesh
+
+            self._mesh = make_worker_mesh()
+        return self._mesh
+
+    @property
+    def device(self) -> torch.device:
+        """Where the per-worker path (``apply``) runs: the mesh's first
+        device."""
+        return self.mesh[0]
+
+    def with_mesh(self, mesh) -> "TorchBsrShardedBackend":
+        """A copy of this backend pinned to ``mesh`` (the hook ``run_fsi``
+        threads an explicit mesh through)."""
+        return TorchBsrShardedBackend(block_shape=self.block_shape,
+                                      clip=self.clip, mesh=mesh,
+                                      dispatch=self.dispatch)
+
+    @property
+    def n_devices(self) -> int:
+        return len(self.mesh)
+
+    @property
+    def state_key(self) -> str:
+        return f"{super().state_key}:d{self.n_devices}:{self.dispatch}"
+
+    def _shards(self, a: np.ndarray) -> List[torch.Tensor]:
+        """``a [p_pad, ...]`` cut into the mesh's blocks of ``p_pad / D``
+        rows, block ``d`` moved to ``mesh[d]``."""
+        per = a.shape[0] // self.n_devices
+        return [torch.from_numpy(a[d * per:(d + 1) * per]).to(dev)
+                for d, dev in enumerate(self.mesh)]
+
+    def fleet_prepare_all(
+        self, layer_states: Sequence[Sequence[_TorchBsrLayerState]]
+    ) -> List[_TorchBsrShardedFleetState]:
+        """Stack each layer's panel once at ``p_pad`` workers on the host,
+        then place each device's block on its device (offline, unbilled)."""
+        maxima = self._fleet_maxima(layer_states)
+        if maxima is None:
+            return []
+        nbr_max, k_max, n_pad_max = maxima
+        D = self.n_devices
+        out: List[_TorchBsrShardedFleetState] = []
+        for states in layer_states:
+            p_pad = -(-len(states) // D) * D
+            blocks, cols, counts = map(self._shards, self._stack_layer(
+                states, p_pad, nbr_max, k_max))
+            out.append(_TorchBsrShardedFleetState(
+                blocks=blocks, cols=cols, counts=counts,
+                m=[s.m for s in states], n=[s.n for s in states],
+                n_pad=n_pad_max, p_pad=p_pad))
+        return out
+
+    def _fleet_rows(self, fleet_state: _TorchBsrShardedFleetState, P: int) -> int:
+        return fleet_state.p_pad
+
+    def _fleet_launch(self, fleet_state: _TorchBsrShardedFleetState,
+                      X: np.ndarray, bias: float) -> np.ndarray:
+        """Each device's block of ``X``'s ``p_pad`` rows on its device,
+        through the dispatch's kernel; the blocks' outputs concatenated."""
+        from repro_torch.kernels.bsr_spmm.ops import (
+            bsr_spmm_fleet_fused_sharded,
+            bsr_spmm_fleet_sharded,
+        )
+
+        Xd = self._shards(X)
+        if self.dispatch == "fused":
+            ys = bsr_spmm_fleet_fused_sharded(
+                fleet_state.blocks, fleet_state.cols, fleet_state.counts, Xd,
+                bias=bias, clip=self.clip)
+        else:
+            ys = bsr_spmm_fleet_sharded(
+                fleet_state.blocks, fleet_state.cols, Xd, bias=bias,
+                clip=self.clip)
+        return np.concatenate([t.cpu().numpy() for t in ys])
 
 
 # ---------------------------------------------------------------------------
@@ -503,6 +662,7 @@ _REGISTRY: Dict[str, type] = {
     NumpyCsrBackend.name: NumpyCsrBackend,
     NumpyFastBackend.name: NumpyFastBackend,
     TorchBsrBackend.name: TorchBsrBackend,
+    TorchBsrShardedBackend.name: TorchBsrShardedBackend,
 }
 BACKEND_NAMES = tuple(_REGISTRY)
 

@@ -221,6 +221,10 @@ def run_fsi(
     ``sim`` bundles seed + policy; when given it overrides ``seed`` /
     ``eager_poll`` / ``warm_pool``.
 
+    ``mesh`` (a list of devices, ``launch.mesh.make_worker_mesh``) pins a
+    sharded fleet backend's worker layout through its ``with_mesh``
+    (``torch-bsr-sharded``); a backend without one raises.
+
     ``faults`` injects a seeded :class:`~repro_torch.faas.chaos.FaultPlan`:
     workers killed at chosen (layer, phase) sites are re-invoked (cold
     start + weight reload — or a warm-pool spare — on real cost lines),

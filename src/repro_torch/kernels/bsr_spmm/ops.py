@@ -5,6 +5,13 @@
 ``bsr_spmm_fleet`` — the whole fleet in one launch: blocks [P,NBR,K,bm,bn],
                      cols [P,NBR,K], counts [P,NBR], x [P,N,B]
                      → y [P, NBR*bm, B]; row (p, r) stops at counts[p, r].
+``bsr_spmm_fleet_fused_sharded`` — the fleet split into device blocks (lists
+                     of ``bsr_spmm_fleet``'s operands, one entry a shard of
+                     the worker axis, each on its own device): one fleet
+                     launch a block.
+``bsr_spmm_fleet_sharded`` — the same lists without ``counts``: one
+                     ``bsr_spmm`` launch a worker of every block (the
+                     reference's vmap within a shard).
 
 Both compute ``clip(Σ_k blocks[.., k] @ x[cols[.., k]*bn : +bn] + bias, 0,
 clip)``.  A tensor on the CPU goes to the plain version in ``ref.py``; a
@@ -42,7 +49,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.bsr_spmm.ref import bsr_spmm_fleet_ref, bsr_spmm_fused_ref
 
-__all__ = ["bsr_spmm", "bsr_spmm_fleet", "layer_work", "LAUNCHES",
+__all__ = ["bsr_spmm", "bsr_spmm_fleet", "bsr_spmm_fleet_sharded",
+           "bsr_spmm_fleet_fused_sharded", "layer_work", "LAUNCHES",
            "MAX_BLOCK", "load_library", "library_path"]
 
 LAUNCHES = {"bsr_spmm_fused": 0, "bsr_spmm_fleet": 0}
@@ -167,6 +175,30 @@ def bsr_spmm_fleet(blocks: torch.Tensor, cols: torch.Tensor,
             n, b, float(bias), float(clip))
     LAUNCHES["bsr_spmm_fleet"] += 1
     return y
+
+
+def bsr_spmm_fleet_fused_sharded(blocks, cols, counts, x, *, bias: float,
+                                 clip: float = 32.0) -> list:
+    """The fleet layer over device blocks: ``blocks``, ``cols``, ``counts``
+    and ``x`` are lists with one entry a shard of the worker axis (the
+    reference's ``bsr_spmm_fleet_fused_sharded`` under ``shard_map``), each
+    shard's operands on its own device.  One :func:`bsr_spmm_fleet` a shard;
+    returns the shards' ``y`` in order, each on its device.  Pad workers
+    (``counts`` 0) cost no K step."""
+    return [bsr_spmm_fleet(b, c, n, xx, bias=bias, clip=clip)
+            for b, c, n, xx in zip(blocks, cols, counts, x)]
+
+
+def bsr_spmm_fleet_sharded(blocks, cols, x, *, bias: float,
+                           clip: float = 32.0) -> list:
+    """The fleet layer over device blocks, one :func:`bsr_spmm` a worker of
+    every shard (the reference's ``bsr_spmm_fleet_sharded``: a vmap of the
+    per-worker body inside each shard).  Same lists as
+    :func:`bsr_spmm_fleet_fused_sharded` without ``counts``; gives the same
+    bits, since the fleet kernel equals the per-worker kernel."""
+    return [torch.stack([bsr_spmm(b[m], c[m], xx[m], bias=bias, clip=clip)
+                         for m in range(b.shape[0])])
+            for b, c, xx in zip(blocks, cols, x)]
 
 
 def layer_work(blocks: torch.Tensor, cols: torch.Tensor, counts: torch.Tensor,

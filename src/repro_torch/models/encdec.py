@@ -32,6 +32,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.backends import KVCacheLayout, get_backend
 from repro_torch.models import layers as L
+from repro_torch.models import param_tree as PT
 from repro_torch.models import transformer as TF
 from repro_torch.models.attention import chunked_causal_attention
 from repro_torch.models.kvcache import pad_kv_to_layout, seq_axis_tree
@@ -39,7 +40,8 @@ from repro_torch.models.kvcache import pad_kv_to_layout, seq_axis_tree
 Cache = Dict[str, Any]
 
 __all__ = ["EncBlock", "DecBlock", "EncDec", "init", "params_from_arrays",
-           "encode", "forward", "prefill", "decode_step", "cache_seq_axes"]
+           "params_to_arrays", "ref_leaves", "loss_fn", "encode", "forward",
+           "prefill", "decode_step", "cache_seq_axes"]
 
 
 # ---------------------------------------------------------------------------
@@ -189,20 +191,30 @@ def encode(params: EncDec, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tens
     x = frames.to(L.PARAM_DTYPE)
     positions = _positions(x)
     for blk in params.enc_blocks:
-        a = L.rms_norm(x, blk.ln_attn, cfg.norm_eps)
-        q, k, v = L.qkv_project(blk.attn, a)
-        q = L.apply_rope(q, positions, cfg.rope_theta)
-        k = L.apply_rope(k, positions, cfg.rope_theta)
-        o = chunked_causal_attention(q, k, v, causal=False)
-        x = x + L.out_project(blk.attn, o, x.dtype)
-        x = _mlp_apply(blk, x, cfg)
+        x = L.remat(cfg, _enc_block, blk, x, cfg, positions)
     return L.rms_norm(x, params.ln_enc, cfg.norm_eps)
+
+
+def _enc_block(blk: EncBlock, x: torch.Tensor, cfg: ModelConfig,
+               positions: torch.Tensor) -> torch.Tensor:
+    a = L.rms_norm(x, blk.ln_attn, cfg.norm_eps)
+    q, k, v = L.qkv_project(blk.attn, a)
+    q = L.apply_rope(q, positions, cfg.rope_theta)
+    k = L.apply_rope(k, positions, cfg.rope_theta)
+    o = chunked_causal_attention(q, k, v, causal=False)
+    x = x + L.out_project(blk.attn, o, x.dtype)
+    return _mlp_apply(blk, x, cfg)
 
 
 def _dec_block(blk: DecBlock, x: torch.Tensor, memory: torch.Tensor,
                cfg: ModelConfig, positions: torch.Tensor):
     """One decoder block over a whole target sequence; returns (x, k, v,
     kc, vc), the self and cross K and V ``[B, S, KV, D]``."""
+    # A view of the memory for this block alone: autograd then adds the
+    # block's two bf16 cotangents of it (cross K and V) before adding them
+    # to the other blocks', in the reference's association (its scan
+    # accumulates each block's sum), which bf16 does not forgive.
+    memory = memory.view_as(memory)
     q, k, v = _self_attn(blk, x, cfg, positions)
     o = chunked_causal_attention(q, k, v)
     x = x + L.out_project(blk.self_attn, o, x.dtype)
@@ -226,8 +238,33 @@ def forward(params: EncDec, batch: Mapping[str, torch.Tensor],
     x = L.embed_tokens(params.embed, batch["tokens"])
     positions = _positions(x)
     for blk in params.dec_blocks:
-        x = _dec_block(blk, x, memory, cfg, positions)[0]
+        x = L.remat(cfg, _dec_block_train, blk, x, memory, cfg, positions)
     return TF.final_logits(x, params.ln_f, params.embed, cfg)
+
+
+def _dec_block_train(blk: DecBlock, x: torch.Tensor, memory: torch.Tensor,
+                     cfg: ModelConfig, positions: torch.Tensor) -> torch.Tensor:
+    return _dec_block(blk, x, memory, cfg, positions)[0]
+
+
+def loss_fn(params: EncDec, batch: Mapping[str, torch.Tensor],
+            cfg: ModelConfig) -> torch.Tensor:
+    """Next-token cross-entropy of the decoder over ``batch["frames"]``'
+    encoding, as the reference's."""
+    logits = forward(params, batch, cfg)
+    return L.cross_entropy_loss(logits[:, :-1], batch["labels"][:, 1:],
+                                batch.get("mask"))
+
+
+def ref_leaves(model: EncDec) -> Dict[PT.Path, PT.RefLeaf]:
+    """The reference's leaves (``enc_blocks/...`` and ``dec_blocks/...``
+    stacked over their layers) over the module's parameters."""
+    return PT.ref_leaves(model)
+
+
+def params_to_arrays(cfg: ModelConfig, model: EncDec) -> Dict[str, Any]:
+    """The inverse of :func:`params_from_arrays`."""
+    return PT.leaves_to_arrays(ref_leaves(model))
 
 
 def prefill(params: EncDec, batch: Mapping[str, torch.Tensor],

@@ -39,6 +39,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.backends import KVCacheLayout, get_backend
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
+from repro_torch.models import param_tree as PT
 from repro_torch.models import transformer as TF
 from repro_torch.models.attention import chunked_causal_attention
 from repro_torch.models.kvcache import init_attn_cache, seq_axis_tree, update_layer_kv
@@ -46,7 +47,8 @@ from repro_torch.models.kvcache import init_attn_cache, seq_axis_tree, update_la
 Cache = Dict[str, Any]
 
 __all__ = ["SharedBlock", "Hybrid", "n_shared_sites", "site_sizes", "init",
-           "params_from_arrays", "forward", "prefill", "decode_step",
+           "params_from_arrays", "params_to_arrays", "ref_leaves", "loss_fn",
+           "forward", "prefill", "decode_step",
            "cache_seq_axes"]
 
 
@@ -163,6 +165,26 @@ def params_from_arrays(cfg: ModelConfig, tree: Mapping[str, Any],
     return model
 
 
+def ref_leaves(cfg: ModelConfig, model: Hybrid) -> Dict[PT.Path, PT.RefLeaf]:
+    """The reference's leaves over the module's parameters: the mamba
+    blocks' as ``groups/<name>`` stacked ``[n_full, g]`` and ``tail/<name>``
+    stacked ``[tail]``, the shared block's and the rest unstacked."""
+    n_full, g, tail = _group_sizes(cfg)
+
+    def regroup(path, i, n):
+        if i < n_full * g:
+            return ("groups",) + path[1:], (n_full, g)
+        return ("tail",) + path[1:], (tail,)
+
+    return PT.ref_leaves(model, regroup)
+
+
+def params_to_arrays(cfg: ModelConfig, model: Hybrid) -> Dict[str, Any]:
+    """The inverse of :func:`params_from_arrays` (``tail`` is ``None``
+    without a tail, as in the reference)."""
+    return PT.leaves_to_arrays(ref_leaves(cfg, model), empty=("tail",))
+
+
 # ---------------------------------------------------------------------------
 # the shared attention block
 # ---------------------------------------------------------------------------
@@ -222,16 +244,33 @@ def _positions(x: torch.Tensor) -> torch.Tensor:
     return torch.arange(S, device=x.device)[None, :].expand(B, S)
 
 
+def _site_train(sh: SharedBlock, blocks, x: torch.Tensor, emb: torch.Tensor,
+                cfg: ModelConfig, positions: torch.Tensor) -> torch.Tensor:
+    """One site over a whole sequence: the shared block, then its mamba
+    blocks (the reference's group body)."""
+    x, _, _ = _shared_prefill(sh, x, emb, cfg, positions)
+    for blk in blocks:
+        x, _, _ = M2.block_apply(blk, x, cfg)
+    return x
+
+
 def forward(params: Hybrid, tokens: torch.Tensor,
             cfg: ModelConfig) -> torch.Tensor:
     """tokens [B, S] → logits [B, S, V] (fp32)."""
     emb = L.embed_tokens(params.embed, tokens)
     x, positions = emb, _positions(emb)
     for _, blocks in _sites(params, cfg):
-        x, _, _ = _shared_prefill(params.shared, x, emb, cfg, positions)
-        for _, blk in blocks:
-            x, _, _ = M2.block_apply(blk, x, cfg)
+        x = L.remat(cfg, _site_train, params.shared,
+                    [blk for _, blk in blocks], x, emb, cfg, positions)
     return TF.final_logits(x, params.ln_f, params.embed, cfg)
+
+
+def loss_fn(params: Hybrid, batch: Mapping[str, torch.Tensor],
+            cfg: ModelConfig) -> torch.Tensor:
+    """Next-token cross-entropy, as the reference's."""
+    logits = forward(params, batch["tokens"], cfg)
+    return L.cross_entropy_loss(logits[:, :-1], batch["labels"][:, 1:],
+                                batch.get("mask"))
 
 
 def prefill(params: Hybrid, tokens: torch.Tensor, cfg: ModelConfig,

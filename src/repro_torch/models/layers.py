@@ -8,21 +8,28 @@ Conventions:
 * activations flow as ``[batch, seq, d_model]`` in the parameters' dtype
   (bf16 by default) with fp32 accumulation inside every product
   (:func:`matmul_acc`, the counterpart of ``preferred_element_type``) and
-  fp32 math in norms, RoPE and activations.
+  fp32 math in norms, RoPE and activations;
+* training differentiates through the same functions with autograd: a
+  product's cotangents are computed as the reference's ``dot_general``
+  transposes them (in fp32, rounded to each operand's dtype), and
+  :func:`remat` recomputes a block's activations in the backward pass where
+  the config asks for it, as the reference's ``jax.checkpoint`` does.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 PARAM_DTYPE = torch.bfloat16
 ACC_DTYPE = torch.float32
 
 __all__ = ["PARAM_DTYPE", "ACC_DTYPE", "matmul_acc", "bmm_acc", "dense_init",
+           "cross_entropy_loss", "remat",
            "embed_init", "empty_param", "rms_norm", "rope_frequencies", "apply_rope",
            "Attention", "Mlp", "init_attention", "init_mlp", "mlp",
            "qkv_project", "out_project", "embed_tokens", "unembed"]
@@ -53,7 +60,7 @@ def matmul_acc(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         # which is exact, as the reference's mixed einsum promotes them
         y = x2.to(ACC_DTYPE) @ w.to(ACC_DTYPE)
     elif x2.is_cuda:
-        y = torch.mm(x2, w, out_dtype=ACC_DTYPE)
+        y = _product_acc(x2, w)
     else:
         y = x2.to(ACC_DTYPE) @ w.to(ACC_DTYPE)
     return y.reshape(*lead, w.shape[-1])
@@ -67,8 +74,43 @@ def bmm_acc(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.dtype == ACC_DTYPE and w.dtype == ACC_DTYPE:
         return torch.bmm(x, w)
     if x.is_cuda:
-        return torch.bmm(x, w, out_dtype=ACC_DTYPE)
+        return _product_acc(x, w)
     return torch.bmm(x.to(ACC_DTYPE), w.to(ACC_DTYPE))
+
+
+def _product_acc(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """cuBLAS's product with an fp32 output; through :class:`_ProductAcc`
+    where autograd records it, directly where it does not (serving)."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _ProductAcc.apply(x, w)
+    if x.dim() == 2:
+        return torch.mm(x, w, out_dtype=ACC_DTYPE)
+    return torch.bmm(x, w, out_dtype=ACC_DTYPE)
+
+
+class _ProductAcc(torch.autograd.Function):
+    """A low-precision product with an fp32 output on the card (``mm`` or
+    ``bmm`` with ``out_dtype=float32``), differentiated as the reference's
+    ``dot_general`` with ``preferred_element_type=float32`` is: each
+    cotangent product takes the fp32 cotangent and the other operand
+    widened to fp32 (exact), accumulates in fp32 and is rounded to its
+    operand's dtype, so a bf16 parameter's gradient is bf16.  (The
+    derivative of ``mm.dtype`` is left out of the question this way.)"""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _product_acc(x, w)  # autograd is off inside forward
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = (g @ w.to(ACC_DTYPE).transpose(-1, -2)).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            gw = (x.to(ACC_DTYPE).transpose(-1, -2) @ g).to(w.dtype)
+        return gx, gw
 
 
 # ---------------------------------------------------------------------------
@@ -244,3 +286,43 @@ def embed_tokens(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 def unembed(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """Logits in fp32 from an fp32-accumulated product — [B, S, V]."""
     return matmul_acc(x, table.t())
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+
+def cross_entropy_loss(logits: torch.Tensor,        # [B, S, V] fp32
+                       labels: torch.Tensor,        # [B, S] int
+                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token negative log-likelihood (over ``mask``'s ones where
+    given), as the reference's: ``logsumexp(logits) - logits[label]``."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.to(nll.dtype)
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)
+
+
+def remat(cfg, fn: Callable, *args):
+    """``fn(*args)``; with ``cfg.remat``, and autograd recording a tensor or
+    a module's parameter among the arguments, its activations are
+    recomputed in the backward pass instead of kept
+    (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``
+    wraps its block scan's body.  Serving, where nothing requires a
+    gradient, calls ``fn`` as it is."""
+    if cfg.remat and torch.is_grad_enabled() and any(map(_records, args)):
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return fn(*args)
+
+
+def _records(arg) -> bool:
+    if isinstance(arg, torch.Tensor):
+        return arg.requires_grad
+    if isinstance(arg, nn.Module):
+        return any(p.requires_grad for p in arg.parameters())
+    return False

@@ -27,12 +27,14 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import param_tree as PT
 from repro_torch.models.kvcache import seq_axis_tree
 
 ACC = torch.float32
 Cache = Dict[str, Any]
 
 __all__ = ["Mamba2Block", "Mamba2", "init", "init_blocks", "params_from_arrays",
+           "params_to_arrays", "ref_leaves", "loss_fn",
            "chunk_cumsum", "causal_conv", "ssd_chunked", "ssd_decode", "ssm_inputs",
            "block_apply", "decode_block", "forward", "prefill", "decode_step",
            "cache_seq_axes"]
@@ -343,14 +345,38 @@ def decode_block(blk: Mamba2Block, x: torch.Tensor, cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 
 
+def _block_train(blk: Mamba2Block, x: torch.Tensor,
+                 cfg: ModelConfig) -> torch.Tensor:
+    return block_apply(blk, x, cfg)[0]
+
+
 def forward(params: Mamba2, tokens: torch.Tensor,
             cfg: ModelConfig) -> torch.Tensor:
     """tokens [B, S] → logits [B, S, V] (fp32)."""
     x = L.embed_tokens(params.embed, tokens)
     for blk in params.blocks:
-        x, _, _ = block_apply(blk, x, cfg)
+        x = L.remat(cfg, _block_train, blk, x, cfg)
     x = L.rms_norm(x, params.ln_f, cfg.norm_eps)
     return L.unembed(x, params.embed)
+
+
+def loss_fn(params: Mamba2, batch: Mapping[str, torch.Tensor],
+            cfg: ModelConfig) -> torch.Tensor:
+    """Next-token cross-entropy, as the reference's."""
+    logits = forward(params, batch["tokens"], cfg)
+    return L.cross_entropy_loss(logits[:, :-1], batch["labels"][:, 1:],
+                                batch.get("mask"))
+
+
+def ref_leaves(model: Mamba2) -> Dict[PT.Path, PT.RefLeaf]:
+    """The reference's leaves (``blocks/in_x`` stacked over the layers, ...)
+    over the module's parameters."""
+    return PT.ref_leaves(model)
+
+
+def params_to_arrays(cfg: ModelConfig, model: Mamba2) -> Dict[str, Any]:
+    """The inverse of :func:`params_from_arrays`."""
+    return PT.leaves_to_arrays(ref_leaves(model))
 
 
 def prefill(params: Mamba2, tokens: torch.Tensor, cfg: ModelConfig,

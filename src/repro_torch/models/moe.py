@@ -41,11 +41,13 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.backends import KVCacheLayout, get_backend
 from repro_torch.models import layers as L
+from repro_torch.models import param_tree as PT
 from repro_torch.models import transformer as TF
 from repro_torch.models.kvcache import seq_axis_tree
 
 __all__ = ["DECODE_CACHE_DTYPE", "MoeFfn", "Block", "Moe", "init",
-           "params_from_arrays", "route_topk", "moe_ffn", "forward",
+           "params_from_arrays", "params_to_arrays", "ref_leaves",
+           "route_topk", "moe_ffn", "forward", "loss_fn",
            "prefill", "decode_step", "cache_seq_axes", "slice_stage_params",
            "stage_prefill", "stage_decode_step"]
 
@@ -337,6 +339,18 @@ def _ffn(cfg: ModelConfig, dp_groups: int) -> Callable:
 # ---------------------------------------------------------------------------
 
 
+def _block_train(block: Block, x: torch.Tensor, cfg: ModelConfig,
+                 positions: torch.Tensor, dp_groups: int):
+    """One block over a whole sequence: (x, the moe layer's ``lb_loss``,
+    ``None`` for a dense block)."""
+    x, _, _ = TF._attn_prefill(block, x, cfg, positions)
+    h = L.rms_norm(x, block.ln_mlp, cfg.norm_eps)
+    if block.mlp is not None:
+        return x + L.mlp(block.mlp, h), None
+    out, m = moe_ffn(block.moe, h, cfg, dp_groups)
+    return x + out, m["lb_loss"]
+
+
 def forward(params: Moe, tokens: torch.Tensor, cfg: ModelConfig,
             dp_groups: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens [B, S] → (logits [B, S, V] fp32, the moe layers' summed
@@ -346,14 +360,34 @@ def forward(params: Moe, tokens: torch.Tensor, cfg: ModelConfig,
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     lb = torch.zeros((), dtype=ACC, device=x.device)
     for block in list(params.dense_blocks) + list(params.moe_blocks):
-        x, _, _ = TF._attn_prefill(block, x, cfg, positions)
-        h = L.rms_norm(x, block.ln_mlp, cfg.norm_eps)
-        if block.mlp is not None:
-            x = x + L.mlp(block.mlp, h)
-        else:
-            out, m = moe_ffn(block.moe, h, cfg, dp_groups)
-            x, lb = x + out, lb + m["lb_loss"]
+        x, lb_block = L.remat(cfg, _block_train, block, x, cfg, positions,
+                              dp_groups)
+        if lb_block is not None:
+            lb = lb + lb_block
     return TF.final_logits(x, params.ln_f, params.head, cfg), lb
+
+
+def loss_fn(params: Moe, batch: Mapping[str, torch.Tensor], cfg: ModelConfig,
+            dp_groups: int = 1, lb_coeff: float = 0.01) -> torch.Tensor:
+    """Next-token cross-entropy plus ``lb_coeff`` times the moe layers'
+    mean load-balancing loss, as the reference's."""
+    logits, lb = forward(params, batch["tokens"], cfg, dp_groups)
+    ce = L.cross_entropy_loss(logits[:, :-1], batch["labels"][:, 1:],
+                              batch.get("mask"))
+    n_moe = cfg.n_layers - cfg.first_dense_layers
+    return ce + lb_coeff * lb / max(1, n_moe)
+
+
+def ref_leaves(model: Moe) -> Dict[PT.Path, PT.RefLeaf]:
+    """The reference's leaves (``dense_blocks/...`` and ``moe_blocks/...``
+    stacked over their layers) over the module's parameters."""
+    return PT.ref_leaves(model)
+
+
+def params_to_arrays(cfg: ModelConfig, model: Moe) -> Dict[str, Any]:
+    """The inverse of :func:`params_from_arrays` (``dense_blocks`` is
+    ``None`` without dense layers, as in the reference)."""
+    return PT.leaves_to_arrays(ref_leaves(model), empty=("dense_blocks",))
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,13 @@
 """Uniform model API over the model families.
 
-``get_model(cfg)`` returns a :class:`ModelApi` with init / forward /
-prefill / decode_step — the entry point the serving engine uses — for
-every family of the reference: ``dense``, ``vlm`` (the dense transformer
-with prepended ``extra_embeds``), ``moe``, ``ssm``, ``hybrid`` and
-``encdec``.  ``cache_seq_axes`` classifies a family's cache leaves for the
-continuous-batching scheduler (``serving/scheduler.py``); ``loss_fn``
-waits for training (ROADMAP.md Queue 1 item 8).  ``get_stage_model(cfg)``
+``get_model(cfg)`` returns a :class:`ModelApi` with init / loss_fn /
+forward / prefill / decode_step — the entry point the serving engine and
+the trainer use — for every family of the reference: ``dense``, ``vlm``
+(the dense transformer with prepended ``extra_embeds``), ``moe``, ``ssm``,
+``hybrid`` and ``encdec``.  ``cache_seq_axes`` classifies a family's cache
+leaves for the continuous-batching scheduler (``serving/scheduler.py``);
+``ref_leaves`` names a model's parameters by the reference's param tree,
+which training's optimizers and checkpoints work on.  ``get_stage_model(cfg)``
 gives the per-stage functions of the pipeline over the serverless fabric
 (``faas/lm_pipeline.py``) for the dense, vlm and moe families.
 ``input_specs`` and ``cache_specs`` build the inputs and caches of an
@@ -40,12 +41,16 @@ FRONTEND_INPUTS = {"vlm": "extra_embeds", "encdec": "frames"}
 class ModelApi:
     cfg: ModelConfig
     init: Callable[[torch.Generator], nn.Module]
+    # (params, batch) -> the training loss, a 0-d fp32 tensor
+    loss_fn: Callable[..., torch.Tensor]
     forward: Callable[..., torch.Tensor]
     prefill: Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
     decode_step: Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
     # cache -> tree of Optional[int]: the sequence axis of each growing KV
     # leaf, None for slot-resident state (``models.kvcache.seq_axis_tree``)
     cache_seq_axes: Callable[[Dict[str, Any]], Any]
+    # params -> {reference leaf path: RefLeaf} (``models/param_tree.py``)
+    ref_leaves: Callable[[nn.Module], Dict[Tuple[str, ...], Any]]
 
 
 def get_model(cfg: ModelConfig, attn_backend=None) -> ModelApi:
@@ -64,11 +69,13 @@ def get_model(cfg: ModelConfig, attn_backend=None) -> ModelApi:
         return ModelApi(
             cfg=cfg,
             init=lambda generator: mamba2.init(generator, cfg),
+            loss_fn=lambda p, b: mamba2.loss_fn(p, b, cfg),
             forward=lambda p, b: mamba2.forward(p, b["tokens"], cfg),
             prefill=lambda p, b, max_len=0: mamba2.prefill(
                 p, b["tokens"], cfg, max_len),
             decode_step=lambda p, t, c: mamba2.decode_step(p, t, c, cfg),
             cache_seq_axes=mamba2.cache_seq_axes,
+            ref_leaves=mamba2.ref_leaves,
         )
     if fam not in ("dense", "vlm", "moe", "hybrid", "encdec"):
         raise ValueError(f"unknown family {fam!r}")
@@ -79,6 +86,8 @@ def get_model(cfg: ModelConfig, attn_backend=None) -> ModelApi:
         return ModelApi(
             cfg=cfg,
             init=lambda generator: moe.init(generator, cfg),
+            loss_fn=lambda p, b, dp_groups=1: moe.loss_fn(p, b, cfg,
+                                                          dp_groups),
             forward=lambda p, b, dp_groups=1: moe.forward(
                 p, b["tokens"], cfg, dp_groups)[0],
             prefill=lambda p, b, max_len, dp_groups=1: moe.prefill(
@@ -87,33 +96,39 @@ def get_model(cfg: ModelConfig, attn_backend=None) -> ModelApi:
             decode_step=lambda p, t, c, dp_groups=1: moe.decode_step(
                 p, t, c, cfg, dp_groups, attn_backend=attn),
             cache_seq_axes=moe.cache_seq_axes,
+            ref_leaves=moe.ref_leaves,
         )
     if fam == "hybrid":
         return ModelApi(
             cfg=cfg,
             init=lambda generator: hybrid.init(generator, cfg),
+            loss_fn=lambda p, b: hybrid.loss_fn(p, b, cfg),
             forward=lambda p, b: hybrid.forward(p, b["tokens"], cfg),
             prefill=lambda p, b, max_len: hybrid.prefill(
                 p, b["tokens"], cfg, max_len, layout=layout(max_len)),
             decode_step=lambda p, t, c: hybrid.decode_step(
                 p, t, c, cfg, attn_backend=attn),
             cache_seq_axes=hybrid.cache_seq_axes,
+            ref_leaves=lambda p: hybrid.ref_leaves(cfg, p),
         )
     if fam == "encdec":
         return ModelApi(
             cfg=cfg,
             init=lambda generator: encdec.init(generator, cfg),
+            loss_fn=lambda p, b: encdec.loss_fn(p, b, cfg),
             forward=lambda p, b: encdec.forward(p, b, cfg),
             prefill=lambda p, b, max_len: encdec.prefill(
                 p, b, cfg, max_len, layout=layout(max_len)),
             decode_step=lambda p, t, c: encdec.decode_step(
                 p, t, c, cfg, attn_backend=attn),
             cache_seq_axes=encdec.cache_seq_axes,
+            ref_leaves=encdec.ref_leaves,
         )
     extra = (lambda b: b["extra_embeds"]) if fam == "vlm" else (lambda b: None)
     return ModelApi(
         cfg=cfg,
         init=lambda generator: transformer.init(generator, cfg),
+        loss_fn=lambda p, b: transformer.loss_fn(p, b, cfg),
         forward=lambda p, b: transformer.forward(p, b["tokens"], cfg,
                                                  extra_embeds=extra(b)),
         prefill=lambda p, b, max_len: transformer.prefill(
@@ -122,6 +137,7 @@ def get_model(cfg: ModelConfig, attn_backend=None) -> ModelApi:
         decode_step=lambda p, t, c: transformer.decode_step(
             p, t, c, cfg, attn_backend=attn),
         cache_seq_axes=transformer.cache_seq_axes,
+        ref_leaves=transformer.ref_leaves,
     )
 
 

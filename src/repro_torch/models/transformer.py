@@ -12,7 +12,11 @@ The parameters live in a :class:`Transformer` module: ``embed``, a
 and runs them under ``jax.lax.scan``, the port loops over the
 ``ModuleList`` in Python; PyTorch runs eagerly, so there is no ``jit``.
 :func:`params_from_arrays` loads the reference's param tree (as numpy
-arrays) into the module, so both packages can hold the same weights.
+arrays) into the module, so both packages can hold the same weights, and
+:func:`params_to_arrays` gives it back; :func:`ref_leaves` names the
+module's parameters by the reference's leaves (training's optimizers and
+checkpoints work on those).  :func:`loss_fn` is the reference's
+next-token loss, each block rematerialized under ``cfg.remat``.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.backends import KVCacheLayout, get_backend
 from repro_torch.models import layers as L
+from repro_torch.models import param_tree as PT
 from repro_torch.models.attention import chunked_causal_attention
 from repro_torch.models.kvcache import (
     init_attn_cache,
@@ -35,7 +40,8 @@ from repro_torch.models.kvcache import (
 
 Cache = Dict[str, torch.Tensor]
 
-__all__ = ["Block", "Transformer", "init", "params_from_arrays", "forward",
+__all__ = ["Block", "Transformer", "init", "params_from_arrays",
+           "params_to_arrays", "ref_leaves", "loss_fn", "forward",
            "prefill", "decode_step", "cache_seq_axes", "param_count",
            "prefill_layers", "decode_positions", "decode_layers", "final_logits",
            "embed_with_extra",
@@ -134,6 +140,18 @@ def params_from_arrays(cfg: ModelConfig, tree: Mapping[str, Any],
     return model
 
 
+def ref_leaves(model: Transformer) -> Dict[PT.Path, PT.RefLeaf]:
+    """The reference's leaves (``blocks/attn/wq`` stacked over the layers,
+    ...) over the module's parameters."""
+    return PT.ref_leaves(model)
+
+
+def params_to_arrays(cfg: ModelConfig, model: Transformer) -> Dict[str, Any]:
+    """The inverse of :func:`params_from_arrays`: the reference's tree as
+    numpy arrays (bf16 widened to fp32)."""
+    return PT.leaves_to_arrays(ref_leaves(model))
+
+
 def param_count(cfg: ModelConfig) -> int:
     return cfg.param_count()
 
@@ -156,6 +174,12 @@ def _attn_prefill(block: Block, x: torch.Tensor, cfg: ModelConfig,
     k = L.apply_rope(k, positions, cfg.rope_theta)
     o = chunked_causal_attention(q, k, v)
     return x + L.out_project(block.attn, o, x.dtype), k, v
+
+
+def _block_train(block: Block, x: torch.Tensor, cfg: ModelConfig,
+                 positions: torch.Tensor) -> torch.Tensor:
+    x, _, _ = _attn_prefill(block, x, cfg, positions)
+    return _mlp_apply(block, x, cfg)
 
 
 def final_logits(x: torch.Tensor, ln_f: torch.Tensor, table: torch.Tensor,
@@ -188,9 +212,22 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     for block in params.blocks:
-        x, _, _ = _attn_prefill(block, x, cfg, positions)
-        x = _mlp_apply(block, x, cfg)
+        x = L.remat(cfg, _block_train, block, x, cfg, positions)
     return final_logits(x, params.ln_f, params.head, cfg)
+
+
+def loss_fn(params: Transformer, batch: Mapping[str, torch.Tensor],
+            cfg: ModelConfig) -> torch.Tensor:
+    """Next-token cross-entropy of ``batch["tokens"]`` against
+    ``batch["labels"]`` shifted by one (over ``batch["mask"]`` where
+    given); vlm's ``extra_embeds`` positions are dropped from the logits
+    first, as in the reference."""
+    extra = batch.get("extra_embeds")
+    logits = forward(params, batch["tokens"], cfg, extra_embeds=extra)
+    if extra is not None:
+        logits = logits[:, extra.shape[1]:]
+    return L.cross_entropy_loss(logits[:, :-1], batch["labels"][:, 1:],
+                                batch.get("mask"))
 
 
 # ---------------------------------------------------------------------------

@@ -165,7 +165,8 @@ def test_net_from_arrays_and_seeded_nets_match_reference():
 
 def _port_files():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
-    return files + [REPO / "chip_smoke.py"]
+    examples = sorted((REPO / "examples").glob("torch_*.py"))
+    return files + examples + [REPO / "chip_smoke.py"]
 
 
 def _imported_modules(path):
@@ -182,11 +183,12 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert len(files) > 20 and all(f.exists() for f in files)
     bad = [(f.relative_to(REPO).as_posix(), m)
            for f in files for m in _imported_modules(f)
-           if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+           if m.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes")]
     assert not bad, bad
     probe = ("import sys, repro_torch.faas.simulator, repro_torch.core.backends,"
-             " repro_torch.kernels.bsr_spmm.ops; print(sorted({m.split('.')[0]"
-             " for m in sys.modules} & {'jax', 'jaxlib', 'repro'}))")
+             " repro_torch.kernels.bsr_spmm.ops, repro_torch.training.trainer;"
+             " print(sorted({m.split('.')[0] for m in sys.modules}"
+             " & {'jax', 'jaxlib', 'repro', 'ml_dtypes'}))")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     out = subprocess.run([sys.executable, "-c", probe], env=env, cwd=REPO,
                          capture_output=True, text=True, timeout=120)
@@ -206,7 +208,8 @@ def test_default_backend_raises_without_cuda(case, monkeypatch):
 
 
 def test_registry_names_and_state_keys():
-    assert port_backends.BACKEND_NAMES == ("numpy-csr", "numpy-fast", "torch-bsr")
+    assert port_backends.BACKEND_NAMES == ("numpy-csr", "numpy-fast", "torch-bsr",
+                                           "torch-bsr-sharded")
     with pytest.raises(ValueError, match="unknown compute backend"):
         port_backends.get_backend("pallas-bsr")
     a = TorchBsrBackend(device="cpu")
