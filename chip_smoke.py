@@ -185,7 +185,44 @@ Run from the root of a checkout.  Phases, each printed as it ends:
    a run stopped after 2 (checkpoint at 2 in a temporary directory) and
    resumed to 4: params, AdamW's m, v and step, and the losses bit for
    bit (``[train]`` lines);
-15. one JSON line with each kernel's time, launches on its path, bound,
+15. the sequence-sharded stream (``generate_stream(mesh=...)``'s step,
+   ``stream_mesh_phase``), run after 5b: internlm2-1.8b at full width and
+   depth, bf16, phase 5b's 16 requests through 8 slots of capacity 1024
+   (``MESH_CAP``: 4 shards of two 128-key blocks) over ``make_mesh((D,),
+   ("seq",), [cuda:0] * D)`` for D 1, 2 and 4, each step captured in one
+   CUDA graph: D 1 bit for bit the unsharded graphed stream (tokens and
+   final logits); at the op level ``sharded_decode_attend`` on layer 0's
+   real q, K and V (rows at positions either side of every shard edge)
+   against the unsharded kernel call at D 2 and 4, 1e-5 in fp32 and 2e-2
+   in bf16, the token written on its owner only, each shard's launch held
+   to the plain version at the shard's shape; the lse merge timed; the
+   dense serving gate at D 2 and 4, teacher-forced on ``generate``'s
+   tokens at the mesh capacity (>= 90% of greedy next tokens equal to
+   the unsharded step's; logits outside 3e-2 reported); D 2 and D 4's
+   free-running share of stream tokens equal to the unsharded stream's,
+   reported (one early flip carries through its request); at D 4
+   graph = eager bit for bit, 24 x 4 decode kernels a step (the profiler's
+   trace of the graphed stream, the wrapper's count of the eager one),
+   each request bit for bit itself served alone through the same
+   scheduler; an fp32 depth cut (4 layers, full width, 4 requests): at
+   every D tokens identical to the unsharded stream's, logits within 1e-4
+   (``[stream-mesh]`` lines: ms a step graphed and eager, tokens/s);
+16. expert parallelism (``ep_phase``), run inside phase 9 on its engine:
+   deepseek-moe-16b with ``set_shard_ctx`` over a ``(1, 4)`` ``("data",
+   "model")`` mesh of ``[cuda:0] * 4`` and ``set_moe_ep_shardmap(True)``:
+   the first moe layer at its real inputs (one 512-token prefill, phase
+   9's first decode step) against ``moe_ffn``, bf16 at 2e-2 and widened
+   to fp32 within 1e-5 of the largest |out| with every shard routing every
+   token to ``moe_ffn``'s experts; ``generate`` with EP on against EP off:
+   peak memory within 2 GB (the shards' experts are views of the stacks),
+   teacher-forced on EP off's tokens pinned to its experts >= 90% of next
+   tokens equal, free-running and expert-set agreement reported; the
+   sequence-sharded stream at D 2 over deepseek (6 requests, 4 slots,
+   capacity 256): graph = eager bit for bit (``[ep]``, ``[stream-mesh]``
+   lines); and, after phase 3, ``sparse_layer_apply`` on the card (an
+   offline ``BSRMatrix`` through the ``bsr_spmm`` kernel, one launch)
+   against the kernel's plain version at 1e-5;
+17. one JSON line with each kernel's time, launches on its path, bound,
    plain-version time and one library call's time (the BSR kernels' at
    layer 2, and at each timed layer under ``by_layer``; the decode
    kernel's launches on the graphed stream, counted in the profiler's
@@ -199,7 +236,10 @@ Run from the root of a checkout.  Phases, each printed as it ends:
    ``encdec_decode_shapes`` (the cross cache), and each phase's numbers
    under ``hybrid``, ``encdec`` and ``vlm``; the BSR kernels' launches in
    phase 13's runs, with each run's host wall, under ``sharded``, and
-   counted in ``launches``).
+   counted in ``launches``; the decode kernel's launches on phase 15's
+   eager D 4 stream under ``stream_mesh_launches`` and that phase's numbers
+   under ``stream_mesh``, phase 16's under ``moe``'s
+   ``expert_parallel``).
 
 Times are medians of single calls between two CUDA events; below ~0.1 ms
 that is mostly the wrapper's host time, so the decode kernel at the serving
@@ -309,6 +349,13 @@ CB_SOLO, CB_PROFILE = 4, (16, 4)
 TRACE_ATTEMPTS = 3     # traces of the graphed stream, until one is whole
 CB_LENS = (0, 1, 63, 64, 65, 544, 640, 513)
 CB_SSM = (8, 4, (64, 256), (4, 16))
+# the sequence-sharded stream (phase 15): the shard counts over [cuda:0] * D,
+# the capacity (phase 5b's requests fit; 1024 splits into 4 shards of two
+# 128-key blocks), each row's position in the op-level check (either side
+# of every shard edge), the fp32 depth cut's layers
+MESH_DS, MESH_CAP = (1, 2, 4), 1024
+MESH_POS = (0, 255, 256, 257, 511, 512, 767, 1023)
+MESH_CUT = 4
 # the LM pipeline at internlm2-1.8b's full width: stages, batch, prompt
 # length and new tokens (phase 8)
 PIPE_P, PIPE_BATCH, PIPE_PROMPT, PIPE_NEW = 4, 8, 128, 16
@@ -320,6 +367,14 @@ MOE_ARCH, MOE_LENS = "deepseek-moe-16b", (0, 1, 513, 544)
 MOE_CUT, MOE_CPU = 4, (2, 64, 4)
 MOE_PIPE = (4, 128, 8)
 MOE_STREAM = (6, 4, (32, 128), (4, 16))
+# expert parallelism (phase 16): the ("data", "model") mesh of the card; the
+# layer's bf16 bound (the reference's, tests/test_moe_ep.py) and its fp32
+# one relative to the largest |out|; the peak memory EP may add; the
+# capacity of the D 2 sharded stream (256 splits into 2 x 2 blocks of 64)
+EP_MESH = (1, 4)
+EP_TOL = dict(rtol=2e-2, atol=2e-2)
+EP_FP32_REL, EP_PEAK_GB = 1e-5, 2.0
+MOE_MESH_CAP = 256
 # zamba2-7b, seamless-m4t-medium and internvl2-2b at full width (phases
 # 10-12): each one's prompt length for generate (batch SERVE_BATCH, NEW
 # new tokens), the fp32 depth cut held to the CPU (config fields, run at
@@ -345,6 +400,8 @@ FAMILY_PHASES = {
                          timed={}, pipeline=(4, 128, 8)),
 }
 FAMILY_CPU = (2, 64, 8)
+# sparse_layer_apply on the card: N, batch, the weights' density, the bias
+SPARSE_LAYER = (2048, 128, 0.05, -0.3)
 # run_fsi over torch-bsr-sharded (phase 13): (channel, shards of the one
 # card, dispatch); P 64 pads to 66 at 3 shards
 SHARDED_RUNS = (("queue", 1, "fused"), ("queue", 1, "vmap"),
@@ -1760,6 +1817,320 @@ def cb_ssm(engine, dev, card) -> None:
 
 
 # ---------------------------------------------------------------------------
+# 15. the sequence-sharded stream (generate_stream(mesh=...))
+# ---------------------------------------------------------------------------
+
+
+def mesh_of(d: int, dev):
+    """``d`` sequence shards, all on the card: ``[cuda:0] * d``."""
+    from repro_torch.launch.mesh import make_mesh
+
+    return make_mesh((d,), ("seq",), [dev] * d)
+
+
+def shard_list(t: torch.Tensor, d: int) -> list:
+    """``t [B, KV, S, D]`` split along S into ``d`` contiguous shards."""
+    return [c.contiguous() for c in t.chunk(d, dim=2)]
+
+
+def sharded_op_check(engine, dev, card) -> dict:
+    """``sharded_decode_attend`` on layer 0's real q, K and V (8 prompts of
+    ``PROMPT`` prefilled at the mesh capacity, the next token's q, k, v,
+    each row at its own position ``MESH_POS``) against the unsharded
+    kernel call on the same cache, at D 2 and D 4, in bf16 and widened to
+    fp32; each shard's kernel launch against its plain version at the
+    shard's shape; the lse merge timed.  Returns the numbers."""
+    from repro_torch.kernels.decode_attention import ops, ref
+    from repro_torch.models import attention
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as TF
+
+    cfg = engine.cfg
+    rng = np.random.default_rng(2)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size, (SERVE_BATCH, PROMPT)),
+                              device=dev)
+    logits, cache = engine.model.prefill(engine.params, {"tokens": prompts},
+                                         MESH_CAP)
+    blk = engine.params.blocks[0]
+    pos = torch.tensor(MESH_POS, dtype=torch.int32, device=dev)
+    x = L.embed_tokens(engine.params.embed, logits[:, -1:].argmax(-1))
+    hn = L.rms_norm(x, blk.ln_attn, cfg.norm_eps)
+    q, k, v = L.qkv_project(blk.attn, hn)
+    q = L.apply_rope(q, pos.reshape(-1, 1), cfg.rope_theta)
+    k = L.apply_rope(k, pos.reshape(-1, 1), cfg.rope_theta)
+    B, _, KV, D = k.shape
+    H = q.shape[2]
+    rows = torch.arange(B, device=dev)
+    attn = engine.attn_backend
+    out = dict(errs={}, shard_errs={})
+    for dtype in (torch.bfloat16, torch.float32):
+        qq = q.to(dtype)
+        kn, vn = (t.to(dtype).reshape(B, KV, 1, D) for t in (k, v))
+        full_k, full_v = (cache[key][0].to(dtype, copy=True) for key in ("k", "v"))
+        full_k[rows, :, pos.long()] = kn[:, :, 0]
+        full_v[rows, :, pos.long()] = vn[:, :, 0]
+        want, _ = ops.decode_mha(qq.reshape(B, H, D), full_k, full_v, pos + 1)
+        for d in MESH_DS[1:]:
+            ks = shard_list(cache["k"][0].to(dtype), d)
+            vs = shard_list(cache["v"][0].to(dtype), d)
+            got, ks, vs = attention.sharded_decode_attend(
+                attn, qq, kn, vn, ks, vs, pos, mesh_of(d, dev))
+            check(torch.equal(torch.cat(ks, dim=2), full_k)
+                  and torch.equal(torch.cat(vs, dim=2), full_v),
+                  f"D {d} {dtype}: the shards' K and V are not the unsharded "
+                  f"cache with the token written at its position")
+            err = (got[:, 0] - want.float()).abs().max().item()
+            torch.testing.assert_close(got[:, 0], want.float(), **DECODE_TOL[dtype])
+            out["errs"][f"D{d}_{dtype}"] = err
+            s_loc = MESH_CAP // d
+            worst = 0.0
+            for i, (kc, vc) in enumerate(zip(ks, vs)):
+                lens = (pos + 1 - i * s_loc).clamp(0, s_loc).to(torch.int32)
+                o, lse = ops.decode_mha(qq.reshape(B, H, D), kc, vc, lens)
+                wo, wl = ref.decode_attention_ref(qq.reshape(B, H, D), kc, vc, lens)
+                torch.testing.assert_close(o.float(), wo.float(), **DECODE_TOL[dtype])
+                torch.testing.assert_close(lse, wl, **DECODE_TOL[dtype])
+                worst = max(worst, (o.float() - wo.float()).abs().max().item())
+            out["shard_errs"][f"D{d}_{dtype}"] = worst
+            log(f"[stream-mesh] op level, layer 0's real q, K, V (B {B}, H {H}, "
+                f"KV {KV}, S {MESH_CAP} = {d} x {s_loc}, D {D}, rows at "
+                f"positions {MESH_POS}), {dtype}: sharded_decode_attend vs the "
+                f"unsharded kernel call max |diff| {err:.3e} (tolerance "
+                f"{DECODE_TOL[dtype]['atol']}); the token on its owner only; "
+                f"each shard's kernel launch vs its plain version max_abs_err "
+                f"{worst:.3e}")
+    # the merge of D 4 partials at this shape, timed
+    d = MESH_DS[-1]
+    s_loc = MESH_CAP // d
+    ks = shard_list(cache["k"][0], d)
+    vs = shard_list(cache["v"][0], d)
+    parts = [attn.decode_partial(q, kc, vc, (pos + 1 - i * s_loc).clamp(
+        0, s_loc).to(torch.int32)) for i, (kc, vc) in enumerate(zip(ks, vs))]
+    outs, lses = [p[0] for p in parts], [p[1] for p in parts]
+    c_b2b, c_graph, c_dev = burst_ms(
+        lambda: attention.combine_split_kv(outs, lses), n=20, reps=3)
+    log(f"[stream-mesh] the lse merge of {d} partials ([{B}, 1, {H}, {D}] "
+        f"each): {c_b2b:.4f} ms back to back, {c_graph:.4f} from a CUDA "
+        f"graph, {fmt_ms(c_dev)} ms of device time a merge, {cfg.n_layers} a "
+        f"step, on {card}")
+    out.update(combine_b2b_ms=c_b2b, combine_graph_ms=c_graph,
+               combine_device_ms=c_dev)
+    del cache, parts, outs, lses, ks, vs
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_teacher_forced(engine, dev, card) -> dict:
+    """The dense serving gate (phase 5's) for the sharded step: ``generate``
+    at the mesh capacity for 8 prompts of ``PROMPT`` (32 new tokens), then,
+    teacher-forced on those tokens, ``decode_step`` over the prefilled
+    cache split into D shards (``seq_shard_axes``) against the unsharded
+    step on the same cache, for D 2 and 4: >= ``AGREE_MIN`` of greedy next
+    tokens equal; the worst step's share of logits outside rtol=atol=3e-2
+    reported.  (A free-running stream carries one early flip through the
+    rest of its request, so its share of equal tokens is reported, not
+    gated.)"""
+    cfg = engine.cfg
+    rng = np.random.default_rng(3)
+    prompts = rng.integers(0, cfg.vocab_size,
+                           size=(SERVE_BATCH, PROMPT)).astype(np.int32)
+    res = engine.generate(prompts, max_new_tokens=NEW, max_len=MESH_CAP)
+    batch = {"tokens": torch.as_tensor(prompts, dtype=torch.int64, device=dev)}
+    _, base = engine.model.prefill(engine.params, batch, MESH_CAP)
+    toks = torch.as_tensor(res.tokens, dtype=torch.int64, device=dev)
+    n_next = SERVE_BATCH * (NEW - 1)
+    out = {}
+    for d in MESH_DS[1:]:
+        mesh = mesh_of(d, dev)
+        cu = {key: t.clone() for key, t in base.items()}
+        cs = {**base, **{key: [c.contiguous() for c in base[key].chunk(d, dim=3)]
+                         for key in ("k", "v")}}
+        agree = replay = 0
+        outside = rel = 0.0
+        for t in range(NEW):
+            tok = toks[:, t:t + 1]
+            lu, cu = engine.model.decode_step(engine.params, tok, cu)
+            ls, cs = engine.model.decode_step(engine.params, tok, cs,
+                                              seq_shard_axes=mesh)
+            diff = (ls - lu).abs()
+            bound = LOGITS_TOL["atol"] + LOGITS_TOL["rtol"] * lu.abs()
+            outside = max(outside, (diff > bound).float().mean().item())
+            rel = max(rel, (diff.norm() / lu.norm()).item())
+            if t + 1 < NEW:
+                replay += int((lu[:, 0].argmax(-1) == toks[:, t + 1]).sum())
+                agree += int((ls[:, 0].argmax(-1) == toks[:, t + 1]).sum())
+        check(replay == n_next, f"the unsharded teacher-forced replay picked "
+                                f"{replay} of {n_next} tokens again")
+        check(agree >= AGREE_MIN * n_next,
+              f"D {d}, teacher-forced: {agree} of {n_next} greedy next tokens "
+              f"equal the unsharded step's")
+        out[f"D{d}"] = dict(agree=agree / n_next, outside=outside, rel_l2=rel)
+        log(f"[stream-mesh] bf16 teacher-forced, B {SERVE_BATCH}, prompt "
+            f"{PROMPT}, {NEW} steps at capacity {MESH_CAP}, D {d} against "
+            f"unsharded: greedy next tokens equal {agree} of {n_next} "
+            f"({agree / n_next:.2%}, >= {AGREE_MIN:.0%} required); worst step "
+            f"{outside:.4%} of the logits outside rtol=atol=3e-2, "
+            f"|diff|_2/|logits|_2 {rel:.3e}, on {card}")
+        del cu, cs
+    del base
+    torch.cuda.empty_cache()
+    return out
+
+
+def token_share(got: dict, want: dict) -> float:
+    """The share of tokens, position by position over every request, equal
+    between two streams of the same requests."""
+    same = total = 0
+    for rid, r in want.items():
+        same += int((got[rid].tokens == r.tokens).sum())
+        total += r.tokens.size
+    return same / max(1, total)
+
+
+def stream_mesh_phase(dev, card):
+    """Phase 15: phase 5b's requests through ``generate_stream(mesh=...)``'s
+    scheduler over ``mesh_of(D)`` for D in ``MESH_DS``, internlm2-1.8b at
+    full width and depth, bf16, at the capacity ``MESH_CAP`` (which splits
+    into 4 shards of whole 128-key blocks): D 1 bit for bit the unsharded
+    graphed stream; the op-level check; the dense gate teacher-forced
+    (``sharded_teacher_forced``); D 2 and D 4's share of tokens equal to
+    the unsharded stream's, free-running, reported; D 4 graph = eager
+    bit for bit, 24 x 4 decode launches a step (the wrapper's count of the
+    eager stream, and the profiler's trace of the graphed one), each
+    request bit for bit itself alone through the same scheduler; then an
+    fp32 depth cut at full width (``MESH_CUT`` layers, ``CB_SOLO``
+    requests): tokens identical to the unsharded stream's at every D,
+    logits within 1e-4.  Returns (the decode kernel's launches on the
+    eager D 4 stream, the worst error of its checks, the numbers)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.scheduler import RequestScheduler
+
+    cfg = get_config(ARCH)
+    engine = ServingEngine(cfg, seed=SEED)
+    layout = engine.cache_layout(MESH_CAP)
+    cap = layout.padded_len(MESH_CAP)
+    check(cap == MESH_CAP and cap % (MESH_DS[-1] * layout.block_k) == 0,
+          f"capacity {cap} (block_k {layout.block_k}) does not split into "
+          f"{MESH_DS[-1]} shards")
+    reqs = cb_requests(CB_REQUESTS, CB_PROMPTS, CB_BUDGETS, CB_ARRIVALS,
+                       cfg.vocab_size, SEED)
+    ops_out = sharded_op_check(engine, dev, card)
+    forced = sharded_teacher_forced(engine, dev, card)
+
+    def scheduler(params, d, graph=True):
+        return RequestScheduler(engine.model, params, CB_SLOTS, cap,
+                                layout=layout, device=dev, graph=graph,
+                                mesh=None if d is None else mesh_of(d, dev))
+
+    base = scheduler(engine.params, None)
+    res_u, wall_u, ms_u, _ = drive(base, reqs)
+    del base
+    tokens = sum(r.max_new_tokens for r in reqs)
+    summary = dict(capacity=cap, unsharded_step_ms_graph=statistics.median(ms_u),
+                   unsharded_tokens_per_s=tokens / wall_u, op=ops_out,
+                   teacher_forced=forced)
+    log(f"[stream-mesh] {cfg.name} at full width, bf16, {CB_REQUESTS} requests "
+        f"(phase 5b's) through {CB_SLOTS} slots of capacity {cap}: unsharded "
+        f"graph {statistics.median(ms_u):.3f} ms a step, {tokens / wall_u:.1f} "
+        f"tokens/s, on {card}")
+    launches = 0
+    for d in MESH_DS:
+        sched = scheduler(engine.params, d)
+        check(sched.captures == 1, f"D {d}: the sharded step was not captured")
+        res, wall, ms, _ = drive(sched, reqs)
+        share = token_share(res, res_u)
+        err = max(float(np.abs(res[r].final_logits - res_u[r].final_logits).max())
+                  for r in res_u)
+        row = dict(step_ms_graph=statistics.median(ms), tokens_per_s_graph=tokens / wall,
+                   token_share=share, final_logits_max_diff=err)
+        if d == 1:
+            same_results(res, res_u, "D 1 vs the unsharded stream")
+        if d == MESH_DS[-1]:
+            steps = sched.steps_run
+            for attempt in range(TRACE_ATTEMPTS):
+                res_t, traced, _ = traced_launches(sched, reqs,
+                                                   "decode_attention_kernel")
+                if traced == cfg.n_layers * d * steps:
+                    break
+                log(f"[stream-mesh] trace {attempt + 1} held {traced} decode "
+                    f"kernels, want {cfg.n_layers} x {d} x {steps}: again")
+            check(traced == cfg.n_layers * d * steps,
+                  f"{traced} decode kernels in the trace of the graphed D {d} "
+                  f"stream, want {cfg.n_layers} x {d} x {steps}")
+            same_results(res, res_t, f"D {d} graph vs graph under the profiler")
+            eager = scheduler(engine.params, d, graph=False)
+            reset_counts()
+            res_e, wall_e, ms_e, _ = drive(eager, reqs)
+            counts = read_counts()
+            launches = counts["decode_attention"]
+            want = only(counts, decode_attention=cfg.n_layers * d * eager.steps_run)
+            check(counts == want, f"D {d} eager stream launches {counts}, want {want}")
+            same_results(res, res_e, f"D {d} graph vs eager")
+            for r in reqs:
+                solo = {x.rid: x for x in sched.run([dataclasses.replace(r, arrival=0)])}
+                same_results({r.rid: res[r.rid]}, solo, f"D {d} stream vs solo")
+            check(sched.captures == 1, f"D {d}: {sched.captures} captures")
+            row.update(step_ms_eager=statistics.median(ms_e),
+                       tokens_per_s_eager=tokens / wall_e,
+                       traced_launches=traced, eager_launches=launches)
+            log(f"[stream-mesh] D {d} graph = eager bit for bit; decode "
+                f"launches a step {cfg.n_layers} x {d} = {cfg.n_layers * d} "
+                f"(the profiler's trace of the graphed stream {traced}, the "
+                f"wrapper's count of the eager one {launches}, over {steps} "
+                f"steps); eager {statistics.median(ms_e):.3f} ms a step, "
+                f"{tokens / wall_e:.1f} tokens/s; each of the {len(reqs)} "
+                f"requests bit for bit itself served alone; captures "
+                f"{sched.captures}")
+            del eager
+        summary[f"D{d}"] = row
+        log(f"[stream-mesh] D {d} over [cuda:0] x {d}: graph "
+            f"{row['step_ms_graph']:.3f} ms a step ({row['step_ms_graph'] - summary['unsharded_step_ms_graph']:+.3f} "
+            f"against unsharded), {row['tokens_per_s_graph']:.1f} tokens/s; "
+            f"tokens equal to the unsharded stream's {share:.2%}"
+            f"{' (bit for bit)' if d == 1 else ' (free-running, reported)'}; "
+            f"final logits max |diff| {err:.3e}, on {card}")
+        del sched
+        torch.cuda.empty_cache()
+
+    # fp32 at a depth cut of full width: tokens identical, logits 1e-4
+    cut = dataclasses.replace(cfg, n_layers=MESH_CUT)
+    p32 = transformer.Transformer(cut, dtype=torch.float32, device=dev)
+    for name, dst in p32.named_parameters():
+        dst.copy_(engine.params.get_parameter(name))
+    del engine
+    torch.cuda.empty_cache()
+    e32 = ServingEngine(cut, params=p32)
+    sub = reqs[:CB_SOLO]
+    want = {r.rid: r for r in RequestScheduler(
+        e32.model, p32, CB_SLOTS, cap, layout=layout, device=dev).run(sub)}
+    worst = 0.0
+    for d in MESH_DS:
+        got = {r.rid: r for r in RequestScheduler(
+            e32.model, p32, CB_SLOTS, cap, layout=layout, device=dev,
+            mesh=mesh_of(d, dev)).run(sub)}
+        for rid, r in want.items():
+            check(np.array_equal(got[rid].tokens, r.tokens),
+                  f"fp32 cut, D {d}: request {rid}'s tokens differ")
+            np.testing.assert_allclose(got[rid].final_logits, r.final_logits,
+                                       **E2E_TOL)
+            worst = max(worst, float(np.abs(got[rid].final_logits
+                                            - r.final_logits).max()))
+    log(f"[stream-mesh] fp32 params cut to {MESH_CUT} layers at full width, "
+        f"requests {[r.rid for r in sub]}: at D {MESH_DS} tokens identical to "
+        f"the unsharded stream's, final logits max |diff| {worst:.3e} "
+        f"(tolerance 1e-4)")
+    summary["fp32_cut_err"] = worst
+    del e32, p32
+    torch.cuda.empty_cache()
+    err = max(max(ops_out["errs"].values()), max(ops_out["shard_errs"].values()))
+    return launches, err, summary
+
+
+# ---------------------------------------------------------------------------
 # 6. the flash-attention prefill kernel
 # ---------------------------------------------------------------------------
 
@@ -2615,6 +2986,276 @@ def moe_stream(engine, dev, card) -> dict:
                 step_ms_eager=statistics.median(ms_e))
 
 
+def ep_on(mesh) -> None:
+    """Expert parallelism on over ``mesh``'s model axis."""
+    from repro_torch.launch.mesh import mesh_axes_of
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe
+
+    ax = mesh_axes_of(mesh)
+    L.set_shard_ctx(mesh, ax.dp, ax.model)
+    moe.set_moe_ep_shardmap(True)
+
+
+def ep_off() -> None:
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe
+
+    L.set_shard_ctx()
+    moe.set_moe_ep_shardmap(False)
+
+
+def ep_layer_check(engine, prompts, res, mesh, dev, card) -> dict:
+    """One moe layer (the first) at its real inputs, a prefill of one
+    prompt of ``PROMPT`` tokens and phase 9's first decode step (B 8),
+    through ``moe_ffn_dispatch`` with EP on against ``moe_ffn``: bf16 at
+    ``EP_TOL``; the layer's weights widened to fp32, within
+    ``EP_FP32_REL`` of the largest |out| with every shard routing each
+    token to ``moe_ffn``'s experts.  Each shard's expert weights must be
+    views of the stacks (their addresses)."""
+    from repro_torch.models import moe
+
+    cfg = engine.cfg
+    real = moe.moe_ffn_dispatch
+    seen = []
+
+    def grab(p, x, *a, **k):
+        if p is engine.params.moe_blocks[0].moe:
+            seen.append(x.detach().clone())
+        return real(p, x, *a, **k)
+
+    moe.moe_ffn_dispatch = grab
+    try:
+        batch = {"tokens": torch.as_tensor(prompts, dtype=torch.int64, device=dev)}
+        _, cache = engine.model.prefill(engine.params, batch, PROMPT + NEW)
+        tok = torch.as_tensor(res.tokens[:, :1], dtype=torch.int64, device=dev)
+        engine.model.decode_step(engine.params, tok, cache)
+        del cache
+        engine.model.prefill(engine.params, {"tokens": batch["tokens"][:1]},
+                             PROMPT + NEW)
+    finally:
+        moe.moe_ffn_dispatch = real
+    xs = {"decode": seen[1], "prefill": seen[2]}
+    p = engine.params.moe_blocks[0].moe
+    M = mesh.shape["model"]
+    E_local = cfg.n_experts // M
+    for m in range(M):
+        for name, t in moe._expert_slice(p, m * E_local, E_local, dev).items():
+            check(t.data_ptr() == getattr(p, name)[m * E_local].data_ptr(),
+                  f"shard {m}'s {name} is not a view of the stacked experts")
+    p32 = moe.MoeFfn(cfg, dtype=torch.float32, device=dev)
+    for name, dst in p32.named_parameters():
+        dst.copy_(p.get_parameter(name))
+    route_topk = moe.route_topk
+    routes: list = []
+
+    def recorded(logits, k):
+        w, idx = route_topk(logits, k)
+        routes.append(idx)
+        return w, idx
+
+    out = {}
+    try:
+        for tag, x in xs.items():
+            ep_off()
+            want, _ = moe.moe_ffn(p, x, cfg)
+            ep_on(mesh)
+            got, _ = moe.moe_ffn_dispatch(p, x, cfg)
+            err = (got.float() - want.float()).abs().max().item()
+            torch.testing.assert_close(got.float(), want.float(), **EP_TOL)
+            ep_off()
+            moe.route_topk = recorded
+            routes.clear()
+            want32, _ = moe.moe_ffn(p32, x.float(), cfg)
+            ep_on(mesh)
+            got32, _ = moe.moe_ffn_shardmap(p32, x.float(), cfg)
+            moe.route_topk = route_topk
+            ep_off()
+            scale = want32.abs().max().item()
+            err32 = (got32 - want32).abs().max().item()
+            check(err32 <= EP_FP32_REL * scale,
+                  f"EP {tag}, fp32: max |diff| {err32:.3e} > {EP_FP32_REL} x "
+                  f"{scale:.3e}")
+            check(len(routes) == 1 + M
+                  and all(torch.equal(r, routes[0]) for r in routes[1:]),
+                  f"EP {tag}: a shard routed a token to other experts")
+            out[tag] = dict(bf16_err=err, fp32_err=err32, fp32_scale=scale)
+            log(f"[ep] {cfg.name}'s first moe layer at its {tag} input "
+                f"{list(x.shape)}, EP over {M} model shards ([cuda:0] x {M}): "
+                f"bf16 max |diff| against moe_ffn {err:.3e} (tolerance "
+                f"{EP_TOL['atol']}); fp32 (the layer widened) {err32:.3e} of "
+                f"the largest |out| {scale:.3f} (<= {EP_FP32_REL} x it); every "
+                f"shard routed every token to moe_ffn's top-"
+                f"{cfg.experts_per_token}, on {card}")
+    finally:
+        moe.route_topk = route_topk
+        ep_off()
+    del p32
+    torch.cuda.empty_cache()
+    return out
+
+
+def ep_teacher_forced(engine, prompts, res, mesh, dev) -> dict:
+    """``res``'s run with EP off recorded (every routing, prefill and 32
+    steps), then teacher-forced on its tokens with EP on: pinned (every
+    model shard of a layer takes the recorded expert ids, its gate weights
+    from its own router logits) and free.  Returns the shares of greedy
+    next tokens equal to ``res``'s and of (token, layer) pairs whose top-k
+    experts agree (free)."""
+    from repro_torch.models import moe
+
+    M = mesh.shape["model"]
+    route_topk = moe.route_topk
+    routes: list = []
+    pinned: list = []
+    calls = [0]
+
+    def recorded(logits, k):
+        w, idx = route_topk(logits, k)
+        routes.append(idx)
+        return w, idx
+
+    def replayed(logits, k):
+        idx = pinned[calls[0] // M]
+        calls[0] += 1
+        return torch.softmax(torch.gather(logits, -1, idx).float(), dim=-1), idx
+
+    batch = {"tokens": torch.as_tensor(prompts, dtype=torch.int64, device=dev)}
+    toks = torch.as_tensor(res.tokens, dtype=torch.int64, device=dev)
+    max_len = prompts.shape[1] + NEW
+
+    def forced(route):
+        moe.route_topk = route
+        logits, cache = engine.model.prefill(engine.params, batch, max_len)
+        agree, steps = 0, []
+        for t in range(NEW):
+            n0 = len(routes)
+            logits, cache = engine.model.decode_step(engine.params,
+                                                     toks[:, t:t + 1], cache)
+            steps.append(routes[n0:])
+            if t + 1 < NEW:
+                agree += int((logits[:, 0].argmax(-1) == toks[:, t + 1]).sum())
+        return agree, steps, logits
+
+    try:
+        ep_off()
+        _, off_steps, off_logits = forced(recorded)
+        check(np.array_equal(off_logits[:, 0].cpu().numpy(), res.prefill_logits),
+              "EP off, teacher-forced, last logits differ from generate's")
+        pinned[:] = list(routes)
+        routes.clear()
+        ep_on(mesh)
+        pin_agree, _, _ = forced(replayed)
+        check(calls[0] == M * len(pinned),
+              f"the pinned run routed {calls[0]} times, want {M} x {len(pinned)}")
+        routes.clear()
+        free_agree, free_steps, _ = forced(recorded)
+    finally:
+        moe.route_topk = route_topk
+        ep_off()
+    same = pairs = 0
+    for a_step, b_step in zip(off_steps, free_steps):
+        for i, a in enumerate(a_step):
+            b = b_step[i * M]
+            same += int((a.sort(dim=-1).values == b.sort(dim=-1).values)
+                        .all(dim=-1).sum())
+            pairs += a.shape[0]
+    n_next = prompts.shape[0] * (NEW - 1)
+    check(pin_agree >= AGREE_MIN * n_next,
+          f"EP on, pinned to EP off's experts: {pin_agree} of {n_next} next "
+          f"tokens equal")
+    return dict(pinned_agree=pin_agree / n_next, free_agree=free_agree / n_next,
+                experts_agree=same / max(1, pairs), n_next=n_next,
+                pinned_n=pin_agree, free_n=free_agree, same=same, pairs=pairs)
+
+
+def ep_phase(engine, prompts, res, dev, card) -> dict:
+    """Phase 16: deepseek-moe-16b at full width with expert parallelism
+    over a ``EP_MESH`` ``("data", "model")`` mesh of the card
+    (``set_shard_ctx``): the layer check (``ep_layer_check``); ``generate``
+    with EP on against EP off, teacher-forced pinned to EP off's experts
+    (>= ``AGREE_MIN`` of next tokens), expert sets reported; peak memory
+    with EP on within ``EP_PEAK_GB`` of EP off (the shards' expert weights
+    are views); then the sequence-sharded stream at D 2 (EP off):
+    graph = eager bit for bit.  Returns the numbers."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serving.scheduler import RequestScheduler
+
+    cfg = engine.cfg
+    mesh = make_mesh(EP_MESH, ("data", "model"), [dev] * math.prod(EP_MESH))
+    layer = ep_layer_check(engine, prompts, res, mesh, dev, card)
+    peaks, gens = {}, {}
+    try:
+        for tag in ("off", "on"):
+            ep_on(mesh) if tag == "on" else ep_off()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            gens[tag] = engine.generate(prompts, max_new_tokens=NEW)
+            torch.cuda.synchronize()
+            peaks[tag] = (torch.cuda.max_memory_allocated(), time.perf_counter() - t)
+    finally:
+        ep_off()
+    check(np.array_equal(gens["off"].tokens, res.tokens),
+          "EP off, generate's tokens differ from phase 9's")
+    share = float((gens["on"].tokens == res.tokens).mean())
+    grow = (peaks["on"][0] - peaks["off"][0]) / 1e9
+    check(grow <= EP_PEAK_GB, f"EP on peaks {grow:.2f} GB above EP off")
+    forced = ep_teacher_forced(engine, prompts, res, mesh, dev)
+    log(f"[ep] generate (B {SERVE_BATCH}, prompt {PROMPT}, {NEW} new) with EP "
+        f"on over {EP_MESH} ('data', 'model') of the card: peak "
+        f"{peaks['on'][0] / 1e9:.2f} GB against EP off's {peaks['off'][0] / 1e9:.2f} "
+        f"({grow:+.2f} GB, <= {EP_PEAK_GB} required: the shards' experts are "
+        f"views); host wall {peaks['on'][1]:.3f} s against {peaks['off'][1]:.3f}; "
+        f"free-running tokens equal to EP off's {share:.2%}; teacher-forced on "
+        f"EP off's tokens: pinned to its experts {forced['pinned_n']} of "
+        f"{forced['n_next']} next tokens equal ({forced['pinned_agree']:.2%}, "
+        f">= {AGREE_MIN:.0%} required), free {forced['free_n']} "
+        f"({forced['free_agree']:.2%}), (token, layer) pairs with the same "
+        f"experts {forced['same']} of {forced['pairs']} "
+        f"({forced['experts_agree']:.4%}), on {card}")
+
+    # the sequence-sharded stream at D 2 over deepseek (EP off)
+    n, slots, plens, budgets = MOE_STREAM
+    reqs = cb_requests(n, plens, budgets, 4, cfg.vocab_size, SEED)
+    layout = engine.cache_layout(MOE_MESH_CAP)
+    cap = layout.padded_len(MOE_MESH_CAP)
+    d = 2
+
+    def scheduler(mesh_d, graph):
+        return RequestScheduler(engine.model, engine.params, slots, cap,
+                                layout=layout, device=dev, graph=graph,
+                                mesh=None if mesh_d is None else mesh_of(mesh_d, dev))
+
+    res_u, _, _, _ = drive(scheduler(None, True), reqs)
+    sched = scheduler(d, True)
+    res_g, wall_g, ms_g, _ = drive(sched, reqs)
+    eager = scheduler(d, False)
+    reset_counts()
+    res_e, wall_e, ms_e, _ = drive(eager, reqs)
+    counts = read_counts()
+    want = only(counts, decode_attention=cfg.n_layers * d * eager.steps_run)
+    check(counts == want, f"moe D {d} eager stream launches {counts}, want {want}")
+    same_results(res_g, res_e, f"moe D {d} graph vs eager")
+    check(sched.captures == 1, f"moe D {d}: {sched.captures} captures")
+    tshare = token_share(res_g, res_u)
+    log(f"[stream-mesh] {cfg.name}, {n} requests through {slots} slots of "
+        f"capacity {cap} at D {d} ([cuda:0] x {d}): graph = eager bit for bit; "
+        f"{counts['decode_attention']} = {cfg.n_layers} x {d} x "
+        f"{eager.steps_run} decode kernels eager; ms a step graph "
+        f"{statistics.median(ms_g):.3f}, eager {statistics.median(ms_e):.3f}; "
+        f"tokens equal to the unsharded stream's {tshare:.2%}, on {card}")
+    del sched, eager
+    torch.cuda.empty_cache()
+    return dict(layer=layer, peak_off_gb=peaks["off"][0] / 1e9,
+                peak_on_gb=peaks["on"][0] / 1e9, generate_share=share,
+                teacher_forced=forced, stream_d2=dict(
+                    step_ms_graph=statistics.median(ms_g),
+                    step_ms_eager=statistics.median(ms_e), token_share=tshare,
+                    launches=counts["decode_attention"]))
+
+
 def moe_phase(dev, peaks, card):
     """deepseek-moe-16b at full width (28 layers, 64 routed experts of 1408
     and 2 shared, top-6; bf16 params drawn on the card from seed 0; fp32 KV
@@ -2708,6 +3349,9 @@ def moe_phase(dev, peaks, card):
         f"makespan {pipe.makespan:.4f} s, cost {pipe.cost.total:.6e} USD, "
         f"messages {pipe.metrics.get('messages', 0):.0f}, on {card}")
     stream = moe_stream(engine, dev, card)
+    t = time.time()
+    ep = ep_phase(engine, prompts, res, dev, card)
+    log(f"[ep] phase 16 {time.time() - t:.1f} s")
 
     # fp32, cut to MOE_CUT layers at full width: the card against the CPU
     cut = dataclasses.replace(cfg, n_layers=MOE_CUT)
@@ -2745,7 +3389,7 @@ def moe_phase(dev, peaks, card):
     summary = dict(prefill_ms=t_prefill * 1e3, step_ms=step * 1e3,
                    tokens_per_s=SERVE_BATCH / step, peak_gb=peak / 1e9,
                    pipeline_wall_s=t_pipe, stream=stream, fp32_cut_err=err32,
-                   teacher_forced=forced)
+                   teacher_forced=forced, expert_parallel=ep)
     return launches["decode_attention"], timing, summary, err
 
 
@@ -3741,6 +4385,37 @@ def build_all():
     check(n_hmma > 0, "ssd_scan.cu has no HMMA instruction")
 
 
+def sparse_layer_check(dev, card) -> float:
+    """``sparse_layer_apply`` (an offline ``BSRMatrix``, padded by
+    ``prepare_bsr_operands``, through the hand-written ``bsr_spmm`` kernel:
+    one launch) on the card against ``bsr_spmm``'s plain version on the same
+    operands, at 1e-5.  Returns the max error."""
+    from repro_torch.core.sparse import bsr_from_dense
+    from repro_torch.kernels.bsr_spmm import ops, ref
+
+    n, b, density, bias = SPARSE_LAYER
+    rng = np.random.default_rng(SEED)
+    dense = (rng.standard_normal((n, n)) * (rng.random((n, n)) < density)
+             ).astype(np.float32)
+    bsr = bsr_from_dense(dense, (32, 32))
+    x = np.abs(rng.standard_normal((n, b))).astype(np.float32)
+    reset_counts()
+    y = ops.sparse_layer_apply(bsr, x, bias)
+    counts = read_counts()
+    check(counts == only(counts, bsr_spmm_fused=1),
+          f"sparse_layer_apply launches {counts}")
+    blocks, cols = ops.prepare_bsr_operands(bsr, device=dev)
+    want = ref.bsr_spmm_fused_ref(blocks, cols, torch.as_tensor(x, device=dev),
+                                  bias)
+    torch.testing.assert_close(y, want, **TOL)
+    err = (y - want).abs().max().item()
+    log(f"[sparse_layer_apply] N {n}, batch {b}, 32x32 blocks "
+        f"({blocks.shape[0]} block rows, K {blocks.shape[1]}), bias {bias}: "
+        f"one bsr_spmm_fused launch, max_abs_err {err:.3e} against the plain "
+        f"version (rtol=atol=1e-5), on {card}")
+    return err
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible; the port's smoke run needs one",
@@ -3764,6 +4439,8 @@ def main() -> int:
     build_all()
 
     timing, launches, errs, fsi = fsi_phases(dev, peaks, card)
+    errs["bsr_spmm_fused"] = max(errs["bsr_spmm_fused"],
+                                 sparse_layer_check(dev, card))
     t = time.time()
     sharded = sharded_phase(dev, card, fsi)
     del fsi
@@ -3783,6 +4460,12 @@ def main() -> int:
     timing["decode_attention"].update(stream_launches=stream_launches,
                                       stream=stream)
     errs["decode_attention"] = max(errs["decode_attention"], row_err)
+    t = time.time()
+    mesh_launches, mesh_err, stream_mesh = stream_mesh_phase(dev, card)
+    log(f"[stream-mesh] phase 15 {time.time() - t:.1f} s")
+    timing["decode_attention"].update(stream_mesh_launches=mesh_launches,
+                                      stream_mesh=stream_mesh)
+    errs["decode_attention"] = max(errs["decode_attention"], mesh_err)
     (timing["flash_attention"], launches["flash_attention"],
      errs["flash_attention"]) = flash_phase(dev, peaks, card)
     timing["ssd_scan"], launches["ssd_scan"], errs["ssd_scan"] = mamba2_phase(
@@ -3808,7 +4491,7 @@ def main() -> int:
     train_phase(dev, peaks, card)
     log(f"[train] phase {time.time() - t:.1f} s")
 
-    # ---- 15. kernels line ------------------------------------------------
+    # ---- 17. kernels line ------------------------------------------------
     kernels = [dict(name=k, route="cuda", source=SOURCES[k],
                     replaces=REPLACES[k], launches=launches[k],
                     max_abs_err=errs[k], **timing[k])

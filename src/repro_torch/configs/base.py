@@ -241,27 +241,18 @@ _ARCH_MODULES = {
     "zamba2-7b": "zamba2_7b",
     "seamless-m4t-medium": "seamless_m4t_medium",
     "internvl2-2b": "internvl2_2b",
-}
-
-# The reference's other architecture, and where the port has it.
-_NOT_PORTED = {
-    "sparse-dnn-graphchallenge": (
-        "the FSI path builds its net with "
-        "repro_torch.data.graphchallenge.make_sparse_dnn"),
+    "sparse-dnn-graphchallenge": "sparse_dnn_graphchallenge",
 }
 
 REGISTRY = dict(_ARCH_MODULES)
 
 
 def list_archs() -> Tuple[str, ...]:
-    return tuple(_ARCH_MODULES)
+    """The language models: every architecture but the sparse DNN."""
+    return tuple(k for k in _ARCH_MODULES if k != "sparse-dnn-graphchallenge")
 
 
 def get_config(arch: str) -> ModelConfig:
-    if arch in _NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {arch!r} is not in repro_torch: {_NOT_PORTED[arch]}.  "
-            f"Ported: {sorted(_ARCH_MODULES)}")
     if arch not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(_ARCH_MODULES)}")
     mod = importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[arch]}")

@@ -12,6 +12,9 @@
 ``bsr_spmm_fleet_sharded`` — the same lists without ``counts``: one
                      ``bsr_spmm`` launch a worker of every block (the
                      reference's vmap within a shard).
+``sparse_layer_apply`` — one GraphChallenge layer of an offline
+                     ``core.sparse.BSRMatrix`` through ``bsr_spmm``
+                     (``prepare_bsr_operands`` pads it for the kernel).
 
 Both compute ``clip(Σ_k blocks[.., k] @ x[cols[.., k]*bn : +bn] + bias, 0,
 clip)``.  A tensor on the CPU goes to the plain version in ``ref.py``; a
@@ -42,7 +45,7 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -50,7 +53,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.bsr_spmm.ref import bsr_spmm_fleet_ref, bsr_spmm_fused_ref
 
 __all__ = ["bsr_spmm", "bsr_spmm_fleet", "bsr_spmm_fleet_sharded",
-           "bsr_spmm_fleet_fused_sharded", "layer_work", "LAUNCHES",
+           "bsr_spmm_fleet_fused_sharded", "prepare_bsr_operands",
+           "sparse_layer_apply", "layer_work", "LAUNCHES",
            "MAX_BLOCK", "load_library", "library_path"]
 
 LAUNCHES = {"bsr_spmm_fused": 0, "bsr_spmm_fleet": 0}
@@ -199,6 +203,35 @@ def bsr_spmm_fleet_sharded(blocks, cols, x, *, bias: float,
     return [torch.stack([bsr_spmm(b[m], c[m], xx[m], bias=bias, clip=clip)
                          for m in range(b.shape[0])])
             for b, c, xx in zip(blocks, cols, x)]
+
+
+def prepare_bsr_operands(bsr, device="cuda") -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's padded operands of an offline ``BSRMatrix``: ``blocks``
+    fp32 ``[NBR, K, bm, bn]`` and ``cols`` int32 ``[NBR, K]`` on
+    ``device`` (``BSRMatrix.padded``: padding slots are zero blocks at
+    column block 0)."""
+    from repro_torch.core.backends import _require_device
+
+    blocks, cols, _ = bsr.padded()
+    device = _require_device("prepare_bsr_operands", device)
+    return (torch.as_tensor(blocks, dtype=torch.float32, device=device),
+            torch.as_tensor(cols, dtype=torch.int32, device=device))
+
+
+def sparse_layer_apply(bsr, x, bias: float, clip: float = 32.0,
+                       device="cuda") -> torch.Tensor:
+    """One GraphChallenge layer, ``y = clip(relu(W·x + bias), 0, clip)``,
+    of an offline ``BSRMatrix`` ``W`` on ``x [N, B]`` (an array or a
+    tensor, taken as fp32): the hand-written ``bsr_spmm`` kernel on the
+    card (``device="cuda"``, the default, which raises where no card is
+    present), its plain version with ``device="cpu"``.  Returns ``y
+    [NBR·bm, B]`` on ``device``."""
+    from repro_torch.core.backends import _require_device
+
+    device = _require_device("sparse_layer_apply", device)
+    blocks, cols = prepare_bsr_operands(bsr, device)
+    x = torch.as_tensor(x, dtype=torch.float32, device=device).contiguous()
+    return bsr_spmm(blocks, cols, x, bias=bias, clip=clip)
 
 
 def layer_work(blocks: torch.Tensor, cols: torch.Tensor, counts: torch.Tensor,

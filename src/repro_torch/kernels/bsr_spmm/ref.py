@@ -9,9 +9,24 @@ package): one gather of every referenced x block row, then K batched
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["bsr_spmm_fused_ref", "bsr_spmm_fleet_ref"]
+__all__ = ["bsr_to_dense", "bsr_spmm_fused_ref", "bsr_spmm_fleet_ref"]
+
+
+def bsr_to_dense(blocks: np.ndarray, cols: np.ndarray,
+                 n_cols_blocks: int) -> np.ndarray:
+    """Padded BSR (``blocks [NBR, K, bm, bn]``, ``cols [NBR, K]``) → the
+    dense weight matrix ``[NBR·bm, n_cols_blocks·bn]`` (numpy, test-side);
+    zero padding blocks add nothing wherever they point."""
+    nbr, k, bm, bn = blocks.shape
+    out = np.zeros((nbr * bm, n_cols_blocks * bn), dtype=blocks.dtype)
+    for br in range(nbr):
+        for i in range(k):
+            c = int(cols[br, i])
+            out[br * bm:(br + 1) * bm, c * bn:(c + 1) * bn] += blocks[br, i]
+    return out
 
 
 def bsr_spmm_fleet_ref(blocks: torch.Tensor, cols: torch.Tensor,

@@ -11,7 +11,13 @@ Entry points:
   the parity oracle of the decode backends.
 * :func:`full_attention` — naive reference for tests.
 * :func:`combine_split_kv_stacked` — the lse-weighted merge of split-KV
-  partials over a leading shard axis.
+  partials over a leading shard axis; :func:`combine_split_kv` the same
+  over a list of shards.
+* :func:`sharded_decode_attend` — the sequence-sharded decode op: the
+  cache's S axis split over a mesh (``launch/mesh.py``), one list entry a
+  shard; the new token written on the shard that owns its position, the
+  backend's split-KV form over each shard's slice, and the partials
+  merged by lse (:func:`seq_shard_bounds`, :func:`insert_kv_local`).
 
 Decode caches use the layout ``[B, KV, S, D]`` (the decode kernel's), so
 the CUDA kernel, the dense oracle and the chunked scan read the same
@@ -24,8 +30,9 @@ them.
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Tuple, Union
+from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -34,7 +41,10 @@ ACC = torch.float32
 NEG_INF = -1e30
 
 __all__ = ["full_attention", "chunked_causal_attention", "decode_attention",
-           "decode_attention_dense", "combine_split_kv_stacked"]
+           "decode_attention_dense", "combine_split_kv_stacked",
+           "combine_split_kv", "seq_shard_bounds", "shard_devices",
+           "insert_kv_local", "ShardStep", "seq_shard_plan",
+           "sharded_decode_attend"]
 
 
 def _valid(cache_len, S: int, ndim: int, device) -> torch.Tensor:
@@ -240,3 +250,141 @@ def combine_split_kv_stacked(outs: torch.Tensor, lses: torch.Tensor) -> torch.Te
     num = (outs * w[..., None]).sum(dim=0)
     den = w.sum(dim=0)
     return num / den[..., None].clamp_min(1e-30)
+
+
+def combine_split_kv(outs: Sequence[torch.Tensor],
+                     lses: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The cross-shard merge of sequence-sharded decode over a list of
+    shards: ``outs[d] [B, 1, H, D]`` (normalized partials) and ``lses[d]
+    [B, 1, H]``, shard ``d`` on its mesh entry's device → fp32 ``[B, 1, H,
+    D]`` on the first shard's device.  The reference's ``pmax`` and
+    ``psum`` become a max and a sum over the list, in shard order: ``m =
+    max(lse)``, ``w = exp(lse - m)``, ``sum(out · w) / max(sum(w),
+    1e-30)``.  A shard with no valid position has ``lse ≈ -1e30``, so its
+    weight is 0; over one shard the weight is exactly 1 and the result is
+    the partial, widened."""
+    dev = outs[0].device
+    return combine_split_kv_stacked(
+        torch.stack([o.to(dev) for o in outs]).to(ACC),
+        torch.stack([lse.to(dev) for lse in lses]).to(ACC))
+
+
+def seq_shard_bounds(shard: int, s_local: int) -> Tuple[int, int]:
+    """``(offset, shard)`` of shard ``shard``'s slice of a cache whose S
+    axis is split into slices of ``s_local`` positions in shard order."""
+    return int(shard) * int(s_local), int(shard)
+
+
+def shard_devices(mesh) -> List[torch.device]:
+    """The shard list's devices: a :class:`repro_torch.launch.mesh.Mesh`'s
+    entries row-major (the reference composes several axis names
+    row-major), or a sequence of devices as it is (``"cuda"`` resolved to
+    the current device's index)."""
+    from repro_torch.launch.mesh import resolve_device
+
+    flat = getattr(mesh, "flat", None)
+    return [resolve_device(d) for d in (flat() if flat is not None else mesh)]
+
+
+@functools.lru_cache(maxsize=None)
+def _arange(n: int, device: torch.device) -> torch.Tensor:
+    """``arange(n)`` on ``device``, made once: the row index of every
+    layer's write, so a step launches no kernel to rebuild it."""
+    return torch.arange(n, device=device)
+
+
+def insert_kv_local(cache: torch.Tensor, update: torch.Tensor,
+                    local_pos: torch.Tensor, owned: torch.Tensor) -> torch.Tensor:
+    """Write a one-token update ``[B, KV, 1, D]`` into a shard's ``[B, KV,
+    S_loc, D]`` cache at ``local_pos``, in place, only where ``owned``:
+    elsewhere the value there is read back and written again, so a shard
+    that does not own the position is left bit-unchanged.  ``local_pos``
+    and ``owned`` hold one entry (the batch at one position) or one a
+    batch row.  Returns ``cache``."""
+    B, KV, _, D = update.shape
+    update = update.to(cache.dtype)
+    lp = local_pos.long()
+    if lp.numel() == 1:
+        lp = lp.reshape(1)
+        cur = cache.index_select(2, lp)
+        cache.index_copy_(2, lp, torch.where(owned.reshape(()), update, cur))
+        return cache
+    rows = _arange(B, cache.device)
+    cur = cache[rows, :, lp]                           # [B, KV, D]
+    cache[rows, :, lp] = torch.where(owned.reshape(B, 1, 1),
+                                     update.reshape(B, KV, D), cur)
+    return cache
+
+
+class ShardStep(NamedTuple):
+    """One shard's part of a decode step: where the new token goes in its
+    slice (``local_pos``, int64), whether the shard owns it (``owned``)
+    and its valid prefix (``local_len``, int32), each one entry or one a
+    batch row, on the shard's device."""
+
+    local_pos: torch.Tensor
+    owned: torch.Tensor
+    local_len: torch.Tensor
+
+
+def seq_shard_plan(pos: torch.Tensor, s_local: int, mesh) -> List[ShardStep]:
+    """Every shard's :class:`ShardStep` for the new token at global
+    position ``pos``, shard ``d`` holding positions ``[d · s_local, (d +
+    1) · s_local)``: ``local_pos = clamp(pos - offset, 0, s_local - 1)``,
+    ``owned = offset <= pos < offset + s_local``, ``local_len = clamp(pos
+    + 1 - offset, 0, s_local)``.  It depends on the step, not the layer:
+    a model computes it once a step and hands it to every layer's
+    :func:`sharded_decode_attend`."""
+    plan = []
+    for d, dev in enumerate(shard_devices(mesh)):
+        offset, _ = seq_shard_bounds(d, s_local)
+        rel = pos.to(dev) - offset
+        plan.append(ShardStep(rel.clamp(0, s_local - 1).long(),
+                              (rel >= 0) & (rel < s_local),
+                              (rel + 1).clamp(0, s_local).to(torch.int32)))
+    return plan
+
+
+def sharded_decode_attend(attn, q: torch.Tensor, k_new: torch.Tensor,
+                          v_new: torch.Tensor, k_shards: List[torch.Tensor],
+                          v_shards: List[torch.Tensor], pos: torch.Tensor,
+                          mesh, plan: Optional[List[ShardStep]] = None):
+    """The sequence-sharded decode op, start to finish.
+
+    ``k_shards``/``v_shards``: one ``[B, KV, S_loc, D]`` slice of the
+    cache a shard, shard ``d`` on ``mesh``'s entry ``d``
+    (:func:`shard_devices`) and holding global positions ``[d · S_loc,
+    (d + 1) · S_loc)``.  ``pos``: the new token's global position, an int
+    tensor of one element or one a batch row (``plan``, where given, is
+    :func:`seq_shard_plan` of it, and ``pos`` is not read).  Each shard
+    writes the new ``k_new``/``v_new [B, KV, 1, D]`` if it owns ``pos``
+    (:func:`insert_kv_local`, in place) and runs ``attn.decode_partial``
+    over its slice with the shard-local valid prefix ``clamp(pos + 1 -
+    offset, 0, S_loc)``, a row at a time where ``pos`` has one a row; the
+    partials merge by lse (:func:`combine_split_kv`).  Shard 0 always
+    holds position 0, so the merge always has a valid shard.  Returns
+    ``(o [B, 1, H, D] fp32 on q's device, k_shards, v_shards)``.  The
+    model families and the tests call this one recipe."""
+    devices = shard_devices(mesh)
+    if not (len(devices) == len(k_shards) == len(v_shards)):
+        raise ValueError(f"a mesh of {len(devices)} entries takes as many "
+                         f"shards, got {len(k_shards)} and {len(v_shards)}")
+    s_local = int(k_shards[0].shape[2])
+    if plan is None:
+        plan = seq_shard_plan(pos, s_local, devices)
+    outs, lses = [], []
+    for d, (kc, vc, dev, step) in enumerate(zip(k_shards, v_shards, devices,
+                                                plan)):
+        if kc.shape[2] != s_local or vc.shape != kc.shape:
+            raise ValueError(f"shard {d}'s cache {tuple(kc.shape)} and "
+                             f"{tuple(vc.shape)} do not match shard 0's "
+                             f"S_loc {s_local}")
+        if kc.device != dev or vc.device != dev:
+            raise ValueError(f"shard {d} is on {kc.device}, its mesh entry "
+                             f"on {dev}")
+        insert_kv_local(kc, k_new.to(dev), step.local_pos, step.owned)
+        insert_kv_local(vc, v_new.to(dev), step.local_pos, step.owned)
+        o, lse = attn.decode_partial(q.to(dev), kc, vc, step.local_len)
+        outs.append(o)
+        lses.append(lse)
+    return combine_split_kv(outs, lses).to(q.device), k_shards, v_shards

@@ -35,7 +35,13 @@ from repro_torch.models import layers as L
 from repro_torch.models import param_tree as PT
 from repro_torch.models import transformer as TF
 from repro_torch.models.attention import chunked_causal_attention
-from repro_torch.models.kvcache import pad_kv_to_layout, seq_axis_tree
+from repro_torch.models.kvcache import (
+    check_kv_capacity,
+    kv_capacity,
+    kv_layer,
+    pad_kv_to_layout,
+    seq_axis_tree,
+)
 
 Cache = Dict[str, Any]
 
@@ -294,7 +300,8 @@ def prefill(params: EncDec, batch: Mapping[str, torch.Tensor],
 
 def decode_step(
     params: EncDec, token: torch.Tensor, cache: Cache, cfg: ModelConfig,
-    *, attn_backend=None, layout: Optional[KVCacheLayout] = None,
+    *, attn_backend=None, seq_shard_axes=None,
+    layout: Optional[KVCacheLayout] = None,
 ) -> Tuple[torch.Tensor, Cache]:
     """One decoder step.  token [B, 1] → logits [B, 1, V] (fp32).
 
@@ -304,20 +311,24 @@ def decode_step(
     one.  The cross attention decodes against the first ``src_length``
     positions of ``kc``/``vc``, which it never writes.  ``length`` and
     ``src_length`` are each a scalar or one per batch row (the
-    continuous-batching scheduler's)."""
+    continuous-batching scheduler's).  Only the growing self-attention
+    cache takes part in sequence sharding (``seq_shard_axes``, as in
+    ``transformer.decode_step``); the cross-attention cache stays whole
+    and decodes where the model runs, as in the reference."""
     attn = get_backend("attention", attn_backend)
-    S = int(cache["k"].shape[3])
+    S = kv_capacity(cache["k"])
     if layout is not None:
-        layout.check_capacity(S)
+        check_kv_capacity(layout, cache["k"])
         layout.check_capacity(int(cache["kc"].shape[3]))
     x = L.embed_tokens(params.embed, token)
-    step = TF.decode_positions(cache["length"], x.shape[0], S)
+    step = TF.decode_positions(cache["length"], x.shape[0], S, seq_shard_axes)
     positions, at, cache_len = step
     src_len = cache["src_length"]
     for i, blk in enumerate(params.dec_blocks):
         q, k, v = _self_attn(blk, x, cfg, positions)
-        o = TF._decode_attn(attn, q, k, v, cache["k"][i], cache["v"][i], at,
-                            cache_len)
+        o = TF._decode_attn(attn, q, k, v, kv_layer(cache["k"], i),
+                            kv_layer(cache["v"], i), at, cache_len,
+                            seq_shard_axes)
         x = x + L.out_project(blk.self_attn, o.to(x.dtype), x.dtype)
         oc = attn.decode(_cross_q(blk, x, cfg), cache["kc"][i],
                          cache["vc"][i], src_len)

@@ -42,7 +42,14 @@ from repro_torch.models import mamba2 as M2
 from repro_torch.models import param_tree as PT
 from repro_torch.models import transformer as TF
 from repro_torch.models.attention import chunked_causal_attention
-from repro_torch.models.kvcache import init_attn_cache, seq_axis_tree, update_layer_kv
+from repro_torch.models.kvcache import (
+    check_kv_capacity,
+    init_attn_cache,
+    kv_capacity,
+    kv_layer,
+    seq_axis_tree,
+    update_layer_kv,
+)
 
 Cache = Dict[str, Any]
 
@@ -214,14 +221,16 @@ def _shared_prefill(sh: SharedBlock, h: torch.Tensor, emb: torch.Tensor,
 
 
 def _shared_decode(attn, sh: SharedBlock, h: torch.Tensor, emb: torch.Tensor,
-                   cfg: ModelConfig, k_cache: torch.Tensor,
-                   v_cache: torch.Tensor, step) -> torch.Tensor:
+                   cfg: ModelConfig, k_cache, v_cache, step,
+                   seq_shard_axes=None) -> torch.Tensor:
     """The shared block on one token: its K and V written into the site's
-    cache in place, attention through the backend (``step`` is
+    cache in place (a list of shards with ``seq_shard_axes``), attention
+    through the backend (``step`` is
     :func:`repro_torch.models.transformer.decode_positions`' triple)."""
     positions, at, cache_len = step
     q, k, v = _shared_qkv(sh, h, emb, cfg, positions)
-    o = TF._decode_attn(attn, q, k, v, k_cache, v_cache, at, cache_len)
+    o = TF._decode_attn(attn, q, k, v, k_cache, v_cache, at, cache_len,
+                        seq_shard_axes)
     h = h + L.out_project(sh.attn, o.to(h.dtype), h.dtype)
     return _shared_mlp(sh, h, emb, cfg)
 
@@ -302,7 +311,8 @@ def prefill(params: Hybrid, tokens: torch.Tensor, cfg: ModelConfig,
 
 def decode_step(
     params: Hybrid, token: torch.Tensor, cache: Cache, cfg: ModelConfig,
-    *, attn_backend=None, layout: Optional[KVCacheLayout] = None,
+    *, attn_backend=None, seq_shard_axes=None,
+    layout: Optional[KVCacheLayout] = None,
 ) -> Tuple[torch.Tensor, Cache]:
     """One decode step.  token [B, 1] → logits [B, 1, V] (fp32).
 
@@ -311,18 +321,22 @@ def decode_step(
     shares them, with ``length`` advanced by one: a scalar, or one length
     per batch row (the continuous-batching scheduler's), as in
     :func:`repro_torch.models.transformer.decode_step`.  A caller that
-    wants to reuse a cache clones it first."""
+    wants to reuse a cache clones it first.  ``seq_shard_axes``: the
+    sites' KV stack sharded over a mesh's sequence shards, as in
+    ``transformer.decode_step``; the conv tails and the state are not
+    sharded."""
     attn = get_backend("attention", attn_backend)
-    S = int(cache["k"].shape[3])
+    S = kv_capacity(cache["k"])
     if layout is not None:
-        layout.check_capacity(S)
+        check_kv_capacity(layout, cache["k"])
     emb = L.embed_tokens(params.embed, token)
-    step = TF.decode_positions(cache["length"], emb.shape[0], S)
+    step = TF.decode_positions(cache["length"], emb.shape[0], S, seq_shard_axes)
     conv, ssm = cache["conv"], cache["ssm"]
     x = emb
     for site, blocks in _sites(params, cfg):
-        x = _shared_decode(attn, params.shared, x, emb, cfg, cache["k"][site],
-                           cache["v"][site], step)
+        x = _shared_decode(attn, params.shared, x, emb, cfg,
+                           kv_layer(cache["k"], site),
+                           kv_layer(cache["v"], site), step, seq_shard_axes)
         for i, blk in blocks:
             x, conv_n, ssm_n = M2.decode_block(
                 blk, x, cfg, {k: conv[k][i] for k in ("x", "B", "C")}, ssm[i])

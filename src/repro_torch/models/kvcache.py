@@ -15,6 +15,12 @@ encoder-decoder cache (``models/encdec.py``) ``k``/``v`` plus the
 cross-attention ``kc``/``vc`` and ``src_length``; every leaf but the
 lengths has the layer (or site) axis first and the batch axis second.
 
+A sequence-sharded cache (``decode_step(..., seq_shard_axes=mesh)``, the
+continuous-batching scheduler over a mesh) holds each growing ``k``/``v``
+stack as a list of shards, ``[L, B, KV, S_loc, D]`` each, shard ``d`` the
+positions ``[d · S_loc, (d + 1) · S_loc)`` on the mesh's entry ``d``;
+:func:`kv_layer` and :func:`kv_capacity` read either form.
+
 Unlike the reference's functional ``dynamic_update_slice``, the updates
 here write into the cache in place: a full-size cache is hundreds of MB,
 and copying it every step would cost more than the step.
@@ -31,7 +37,8 @@ from repro_torch.core.backends import KVCacheLayout
 Cache = Dict[str, torch.Tensor]
 
 __all__ = ["KVCacheLayout", "init_attn_cache", "pad_kv_to_layout",
-           "update_layer_kv", "seq_axis_tree"]
+           "update_layer_kv", "seq_axis_tree", "kv_layer", "kv_capacity",
+           "check_kv_capacity"]
 
 # Cache-dict keys whose subtrees hold *growing* self-attention KV (sequence
 # axis at -2, one new position written per decode step) vs. state that is
@@ -99,3 +106,25 @@ def update_layer_kv(cache: Cache, layer: int, k_new: torch.Tensor,
         buf = cache[key][layer]
         buf[:, :, position:position + n] = new.transpose(1, 2).to(buf.dtype)
     return cache
+
+
+def kv_layer(stack, i: int):
+    """Layer ``i`` of a KV stack: ``[B, KV, S, D]`` of a tensor, the list
+    of each shard's ``[B, KV, S_loc, D]`` of a sharded stack."""
+    if isinstance(stack, torch.Tensor):
+        return stack[i]
+    return [s[i] for s in stack]
+
+
+def kv_capacity(stack) -> int:
+    """The global sequence capacity of a KV stack, sharded or not."""
+    if isinstance(stack, torch.Tensor):
+        return int(stack.shape[3])
+    return sum(int(s.shape[3]) for s in stack)
+
+
+def check_kv_capacity(layout: KVCacheLayout, stack) -> None:
+    """``layout.check_capacity`` of the capacity a decode backend sees:
+    the whole stack's, or each shard's of a sharded stack."""
+    for s in ([stack] if isinstance(stack, torch.Tensor) else stack):
+        layout.check_capacity(int(s.shape[3]))

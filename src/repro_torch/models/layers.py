@@ -18,7 +18,7 @@ Conventions:
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,11 +28,48 @@ from torch import nn
 PARAM_DTYPE = torch.bfloat16
 ACC_DTYPE = torch.float32
 
-__all__ = ["PARAM_DTYPE", "ACC_DTYPE", "matmul_acc", "bmm_acc", "dense_init",
+__all__ = ["PARAM_DTYPE", "ACC_DTYPE", "set_shard_ctx", "shard_ctx",
+           "set_tp_psum_dtype", "constrain", "matmul_acc", "bmm_acc", "dense_init",
            "cross_entropy_loss", "remat",
            "embed_init", "empty_param", "rms_norm", "rope_frequencies", "apply_rope",
            "Attention", "Mlp", "init_attention", "init_mlp", "mlp",
            "qkv_project", "out_project", "embed_tokens", "unembed"]
+
+
+# ---------------------------------------------------------------------------
+# sharding context (set by a launcher; nothing is set on a plain run)
+# ---------------------------------------------------------------------------
+
+_SHARD_CTX: Dict[str, Any] = {"mesh": None, "dp": (), "model": None}
+
+
+def set_shard_ctx(mesh=None, dp=(), model=None) -> None:
+    """Install a :class:`repro_torch.launch.mesh.Mesh` and the names of
+    its data axes (``dp``) and its model axis (``model``).  The moe
+    family's expert parallelism reads it (``moe.moe_ffn_dispatch``)."""
+    _SHARD_CTX.update(mesh=mesh, dp=tuple(dp), model=model)
+
+
+def shard_ctx() -> Dict[str, Any]:
+    return dict(_SHARD_CTX)
+
+
+# Dtype of tensor-parallel partial sums, as the reference keeps it; the
+# port has no tensor-parallel path that reads it yet.
+TP_PSUM_DTYPE = ACC_DTYPE
+
+
+def set_tp_psum_dtype(dtype) -> None:
+    global TP_PSUM_DTYPE
+    TP_PSUM_DTYPE = dtype
+
+
+def constrain(x: torch.Tensor, *axes) -> torch.Tensor:
+    """The reference's sharding hint over symbolic axes (``"dp"``,
+    ``"model"``, ``None``).  A hint places a value and never changes it,
+    and the port gives placements no meaning yet, so ``x`` comes back
+    unchanged."""
+    return x
 
 
 # ---------------------------------------------------------------------------

@@ -43,11 +43,16 @@ from repro_torch.core.backends import KVCacheLayout, get_backend
 from repro_torch.models import layers as L
 from repro_torch.models import param_tree as PT
 from repro_torch.models import transformer as TF
-from repro_torch.models.kvcache import seq_axis_tree
+from repro_torch.models.kvcache import (
+    check_kv_capacity,
+    kv_capacity,
+    seq_axis_tree,
+)
 
 __all__ = ["DECODE_CACHE_DTYPE", "MoeFfn", "Block", "Moe", "init",
            "params_from_arrays", "params_to_arrays", "ref_leaves",
-           "route_topk", "moe_ffn", "forward", "loss_fn",
+           "route_topk", "moe_ffn", "MOE_EP_SHARDMAP", "set_moe_ep_shardmap",
+           "moe_ffn_shardmap", "moe_ffn_dispatch", "forward", "loss_fn",
            "prefill", "decode_step", "cache_seq_axes", "slice_stage_params",
            "stage_prefill", "stage_decode_step"]
 
@@ -253,46 +258,64 @@ def _dispatch_tables(e_flat: torch.Tensor, E: int, C: int
     return table.reshape(*lead, E, C), valid.reshape(*lead, E, C)
 
 
-def moe_ffn(p: MoeFfn, x: torch.Tensor, cfg: ModelConfig, dp_groups: int = 1,
-            metrics: bool = True
-            ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    """x ``[B, S, d]`` → (out ``[B, S, d]`` in ``x.dtype``, metrics).
-
-    ``metrics`` (the Switch-style ``lb_loss`` and the share of empty
-    expert slots ``drop_frac``, as the reference computes them) are
-    ``None`` with ``metrics=False``, which serving passes."""
+def _routed_experts(router: torch.Tensor, w_gate: torch.Tensor,
+                    w_up: torch.Tensor, w_down: torch.Tensor, x: torch.Tensor,
+                    cfg: ModelConfig, groups: int = 1, e0: int = 0):
+    """The routed experts of ``x [B, S, d]``: every token routed against
+    all E experts (``router [d, E]``), the tokens split into ``groups``
+    groups, each expert taking at most ``C = int(ceil(T_group·k/E) ·
+    capacity_factor)`` of a group's tokens, and the experts ``[e0, e0 +
+    E_local)`` run, whose stacked weights ``w_* [E_local, ...]`` are
+    given (all E of them for :func:`moe_ffn`, one model shard's for
+    :func:`_moe_ffn_local`).  An assignment to an expert outside the range
+    goes to a sentinel expert that is cut off; the stable sort ranks the
+    range's assignments as the unsharded dispatch ranks them, so the same
+    tokens drop.  Returns (each token's terms of the range's experts [T,
+    d] fp32, added in expert order from +0.0; the router logits [T, E];
+    the expert ids [T, k]; the slots' ``valid`` [G, E_local, C])."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.experts_per_token
+    E_local = w_gate.shape[0]
     xf = x.reshape(B * S, d)
     T = B * S
-    G = max(1, min(dp_groups, T))
+    G = max(1, min(groups, T))
     while T % G:
         G -= 1
     Tg = T // G
     C = max(1, int(-(-Tg * k // E) * cfg.moe_capacity_factor))
     dev = x.device
 
-    logits = xf.to(ACC) @ p.router                    # [T, E] fp32
+    logits = xf.to(ACC) @ router                      # [T, E] fp32
     w, idx = route_topk(logits, k)                    # [T, k]
-    tables, valid = _dispatch_tables(idx.reshape(G, Tg * k), E, C)  # [G, E, C]
+    if E_local == E:                                  # every expert here
+        tables, valid = _dispatch_tables(idx.reshape(G, Tg * k), E, C)
+    else:
+        e_rel = idx - e0
+        e_flat = torch.where((e_rel >= 0) & (e_rel < E_local), e_rel,
+                             torch.full_like(e_rel, E_local))
+        tables, valid = _dispatch_tables(e_flat.reshape(G, Tg * k),
+                                         E_local + 1, C)
+        tables, valid = tables[:, :E_local], valid[:, :E_local]  # [G, El, C]
 
     # the token of each slot: slot (g, e, c) holds assignment
     # g·Tg·k + tables[g, e, c], whose token is that over k
     base = (torch.arange(G, device=dev) * (Tg * k))[:, None, None]
-    slot_token = ((tables + base) // k).transpose(0, 1).reshape(E, G * C)
-    xe = xf[slot_token]                               # [E, G·C, d]
-    gate = L.bmm_acc(xe, p.w_gate)
-    up = L.bmm_acc(xe, p.w_up)
+    slot_token = ((tables + base) // k).transpose(0, 1).reshape(E_local, G * C)
+    xe = xf[slot_token]                               # [El, G·C, d]
+    gate = L.bmm_acc(xe, w_gate)
+    up = L.bmm_acc(xe, w_up)
     h = (torch.nn.functional.silu(gate) * up).to(x.dtype)
-    oe = L.bmm_acc(h, p.w_down).reshape(E * G * C, d)  # fp32
+    oe = L.bmm_acc(h, w_down).reshape(E_local * G * C, d)  # fp32
 
     # Each assignment's slot, read back from the tables: slot (g, e, c)
     # holds assignment tables[g, e, c] when valid.  An assignment that was
-    # dropped keeps -1; the scatter of the empty slots aims at a column A
-    # that is cut off.  Valid slots hold distinct assignments.
+    # dropped, or went to another shard's expert, keeps -1; the scatter of
+    # the empty slots aims at a column A that is cut off.  Valid slots
+    # hold distinct assignments.
     A = Tg * k
-    slot_ids = torch.arange(E * C, device=dev).expand(G, E * C)
-    aim = torch.where(valid, tables, torch.full_like(tables, A)).reshape(G, E * C)
+    slot_ids = torch.arange(E_local * C, device=dev).expand(G, E_local * C)
+    aim = torch.where(valid, tables, torch.full_like(tables, A)).reshape(
+        G, E_local * C)
     slot_of = torch.full((G, A + 1), -1, dtype=torch.long, device=dev)
     slot_of.scatter_(1, aim, slot_ids)
     s = slot_of[:, :A].reshape(T, k)                  # per token and choice
@@ -309,27 +332,143 @@ def moe_ffn(p: MoeFfn, x: torch.Tensor, cfg: ModelConfig, dp_groups: int = 1,
     out = torch.zeros((T, d), dtype=ACC, device=dev)
     for j in range(k):
         out = out + contrib[:, j]
+    return out, logits, idx, valid
+
+
+def _lb_loss(logits: torch.Tensor, idx: torch.Tensor, E: int) -> torch.Tensor:
+    """The Switch-style load-balancing loss of a routing, as the
+    reference computes it."""
+    T, k = idx.shape
+    counts = torch.zeros((E,), dtype=ACC, device=idx.device).scatter_add_(
+        0, idx.reshape(-1), torch.ones((T * k,), dtype=ACC, device=idx.device))
+    return E * torch.sum((counts / (T * k)) * torch.softmax(logits, -1).mean(0))
+
+
+def moe_ffn(p: MoeFfn, x: torch.Tensor, cfg: ModelConfig, dp_groups: int = 1,
+            metrics: bool = True
+            ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """x ``[B, S, d]`` → (out ``[B, S, d]`` in ``x.dtype``, metrics).
+
+    Every expert runs here (:func:`_routed_experts` over all E), the
+    shared experts added in fp32 before the one rounding to ``x.dtype``.
+    ``metrics`` (the Switch-style ``lb_loss`` and the share of empty
+    expert slots ``drop_frac``, as the reference computes them) are
+    ``None`` with ``metrics=False``, which serving passes."""
+    B, S, d = x.shape
+    out, logits, idx, valid = _routed_experts(p.router, p.w_gate, p.w_up,
+                                              p.w_down, x, cfg, dp_groups)
     if p.shared is not None:
-        out = out + L.mlp(p.shared, x).reshape(T, d).to(ACC)
+        out = out + L.mlp(p.shared, x).reshape(B * S, d).to(ACC)
     out = out.reshape(B, S, d).to(x.dtype)
     if not metrics:
         return out, None
-    probs = torch.softmax(logits, dim=-1)
-    counts = torch.zeros((E,), dtype=ACC, device=dev).scatter_add_(
-        0, idx.reshape(-1), torch.ones((T * k,), dtype=ACC, device=dev))
-    lb_loss = E * torch.sum((counts / (T * k)) * probs.mean(dim=0))
-    drop_frac = 1.0 - valid.to(ACC).mean()
-    return out, {"lb_loss": lb_loss, "drop_frac": drop_frac}
+    return out, {"lb_loss": _lb_loss(logits, idx, cfg.n_experts),
+                 "drop_frac": 1.0 - valid.to(ACC).mean()}
+
+
+# ---------------------------------------------------------------------------
+# expert parallelism over a mesh's model axis
+# ---------------------------------------------------------------------------
+
+# Off unless a launcher turns it on, as in the reference.  Every shard of
+# the model axis routes the same tokens against all E experts, gathers only
+# its own E / m experts' tokens and runs their products; a sum over the
+# shards (the reference's one psum of the [T, d] output a moe layer)
+# combines them.
+MOE_EP_SHARDMAP = False
+
+
+def set_moe_ep_shardmap(on: bool) -> None:
+    global MOE_EP_SHARDMAP
+    MOE_EP_SHARDMAP = on
+
+
+def _expert_slice(p: MoeFfn, e0: int, E_local: int, dev) -> Dict[str, torch.Tensor]:
+    """Shard ``[e0, e0 + E_local)``'s expert weights: views of the stacked
+    ``[E, ...]`` parameters (never copies) on the parameters' device; a
+    copy to ``dev`` only where the shard lives on another device."""
+    return {name: getattr(p, name)[e0:e0 + E_local].to(dev)
+            for name in ("w_gate", "w_up", "w_down")}
+
+
+def _moe_ffn_local(p_local: Mapping[str, torch.Tensor], x: torch.Tensor,
+                   cfg: ModelConfig, e0: int, E_local: int, groups: int = 1
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Route against all E experts; evaluate only experts ``[e0, e0 +
+    E_local)``.  ``p_local``: the full ``router`` and the shard's
+    ``w_gate``, ``w_up``, ``w_down`` (``[E_local, ...]``).  Returns the
+    shard's fp32 output ``[B, S, d]`` and the load-balancing loss."""
+    if p_local["w_gate"].shape[0] != E_local:
+        raise ValueError(f"the shard's experts are {p_local['w_gate'].shape[0]}, "
+                         f"not {E_local}")
+    out, logits, idx, _ = _routed_experts(
+        p_local["router"], p_local["w_gate"], p_local["w_up"],
+        p_local["w_down"], x, cfg, groups, e0)
+    return out.reshape(x.shape), _lb_loss(logits, idx, cfg.n_experts)
+
+
+def moe_ffn_shardmap(p: MoeFfn, x: torch.Tensor, cfg: ModelConfig,
+                     dp_groups: int = 1
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Expert parallelism over the shard context's model axis
+    (``layers.set_shard_ctx``), as the reference's ``shard_map``
+    schedule: shard ``m`` of the axis (on the mesh's entry ``m`` along
+    it) evaluates experts ``[m · E/M, (m + 1) · E/M)`` of the tokens
+    (:func:`_moe_ffn_local`), and the shards' fp32 outputs are summed in
+    shard order on the first shard's device (the psum), rounded to
+    ``x.dtype``; the shared experts run once outside, added in
+    ``x.dtype``, as in the reference.  The tokens group as the data axes
+    split them in the reference (``dp`` size groups), or by ``dp_groups``
+    where a caller asks for more (the continuous-batching step routes
+    each slot as its own group).  Returns ``(out, {"lb_loss",
+    "drop_frac": 0})``; ``lb_loss`` is shard 0's, equal on every shard."""
+    from repro_torch.launch.mesh import mesh_axes_of
+
+    ctx = L.shard_ctx()
+    mesh, model_axis = ctx["mesh"], ctx["model"]
+    devices = mesh.along(model_axis)
+    E_local = cfg.n_experts // len(devices)
+    dp_size = mesh_axes_of(mesh).axis_size(tuple(ctx["dp"])) if ctx["dp"] else 1
+    groups = dp_groups if dp_groups > 1 else dp_size
+    outs, lbs = [], []
+    for m, dev in enumerate(devices):
+        e0 = m * E_local
+        p_local = {"router": p.router.to(dev),
+                   **_expert_slice(p, e0, E_local, dev)}
+        out, lb = _moe_ffn_local(p_local, x.to(dev), cfg, e0, E_local, groups)
+        outs.append(out)
+        lbs.append(lb)
+    total = outs[0]
+    for out in outs[1:]:
+        total = total + out.to(total.device)
+    out = total.to(x.device).to(x.dtype)
+    if p.shared is not None:  # the shared experts stay outside the shards
+        out = out + L.mlp(p.shared, x)
+    return out, {"lb_loss": lbs[0].to(x.device),
+                 "drop_frac": torch.zeros((), dtype=ACC, device=x.device)}
+
+
+def moe_ffn_dispatch(p: MoeFfn, x: torch.Tensor, cfg: ModelConfig,
+                     dp_groups: int = 1, metrics: bool = True):
+    """The moe layer every block runs: :func:`moe_ffn_shardmap` when
+    :data:`MOE_EP_SHARDMAP` is on, a shard context with a model axis is
+    set and ``n_experts`` divides that axis's size (the reference's
+    condition), :func:`moe_ffn` otherwise."""
+    ctx = L.shard_ctx()
+    if (MOE_EP_SHARDMAP and ctx["mesh"] is not None and ctx["model"]
+            and cfg.n_experts % ctx["mesh"].shape[ctx["model"]] == 0):
+        return moe_ffn_shardmap(p, x, cfg, dp_groups)
+    return moe_ffn(p, x, cfg, dp_groups, metrics=metrics)
 
 
 def _ffn(cfg: ModelConfig, dp_groups: int) -> Callable:
     """A block's feed-forward half, residual included: the dense ``mlp``
-    or the routed ``moe``."""
+    or the routed ``moe`` (:func:`moe_ffn_dispatch`)."""
     def ffn(block: Block, x: torch.Tensor) -> torch.Tensor:
         h = L.rms_norm(x, block.ln_mlp, cfg.norm_eps)
         if block.mlp is not None:
             return x + L.mlp(block.mlp, h)
-        out, _ = moe_ffn(block.moe, h, cfg, dp_groups, metrics=False)
+        out, _ = moe_ffn_dispatch(block.moe, h, cfg, dp_groups, metrics=False)
         return x + out
     return ffn
 
@@ -347,7 +486,7 @@ def _block_train(block: Block, x: torch.Tensor, cfg: ModelConfig,
     h = L.rms_norm(x, block.ln_mlp, cfg.norm_eps)
     if block.mlp is not None:
         return x + L.mlp(block.mlp, h), None
-    out, m = moe_ffn(block.moe, h, cfg, dp_groups)
+    out, m = moe_ffn_dispatch(block.moe, h, cfg, dp_groups)
     return x + out, m["lb_loss"]
 
 
@@ -407,12 +546,13 @@ def _prefill_stacks(stacks, x, cfg, max_len, dp_groups, layout):
                "length": torch.full((), S, dtype=torch.int32, device=x.device)}
 
 
-def _decode_stacks(attn, stacks, x, cache, cfg, dp_groups):
-    S = int(cache["stacks"][-1]["k"].shape[3])
-    step = TF.decode_positions(cache["length"], x.shape[0], S)
+def _decode_stacks(attn, stacks, x, cache, cfg, dp_groups,
+                   seq_shard_axes=None):
+    S = kv_capacity(cache["stacks"][-1]["k"])
+    step = TF.decode_positions(cache["length"], x.shape[0], S, seq_shard_axes)
     for blocks, kv in zip(stacks, cache["stacks"]):
         x = TF.decode_layers(attn, blocks, x, kv["k"], kv["v"], cfg, step,
-                             _ffn(cfg, dp_groups))
+                             _ffn(cfg, dp_groups), seq_shard_axes)
     return x, {**cache, "length": cache["length"] + 1}
 
 
@@ -431,7 +571,7 @@ def prefill(params: Moe, tokens: torch.Tensor, cfg: ModelConfig,
 
 def decode_step(params: Moe, token: torch.Tensor, cache: Dict[str, Any],
                 cfg: ModelConfig, dp_groups: int = 1, *, attn_backend=None,
-                layout: Optional[KVCacheLayout] = None,
+                seq_shard_axes=None, layout: Optional[KVCacheLayout] = None,
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One decode step, token [B, 1] → logits [B, 1, V] (fp32), as
     ``transformer.decode_step`` (K and V written in place; ``length`` a
@@ -441,16 +581,18 @@ def decode_step(params: Moe, token: torch.Tensor, cache: Dict[str, Any],
     one length; with one length a row (the continuous-batching slots,
     each its own request) each row is its own group, as each B = 1 step
     of the reference's scheduler routes its one token, so that a row's
-    experts never depend on its neighbours."""
+    experts never depend on its neighbours.  ``seq_shard_axes``: the
+    sequence-sharded step over a mesh, as in
+    ``transformer.decode_step``."""
     attn = get_backend("attention", attn_backend)
     if cache["length"].dim() == 1:
         dp_groups = token.shape[0]
     if layout is not None:
-        layout.check_capacity(int(cache["stacks"][-1]["k"].shape[3]))
+        check_kv_capacity(layout, cache["stacks"][-1]["k"])
     x = L.embed_tokens(params.embed, token)
     x, new_cache = _decode_stacks(
         attn, _stacks(params.dense_blocks, params.moe_blocks), x, cache, cfg,
-        dp_groups)
+        dp_groups, seq_shard_axes)
     return TF.final_logits(x, params.ln_f, params.head, cfg), new_cache
 
 

@@ -61,7 +61,9 @@ def get_model(cfg: ModelConfig, attn_backend=None) -> ModelApi:
     families (``None`` → the attention kind's default, ``torch-splitk``).
     Resolved once here; its :class:`KVCacheLayout` is derived from
     ``max_len`` at prefill.  The ``ssm`` family has no decode attention and
-    resolves none.  A batch is ``{"tokens"}``, plus ``"extra_embeds" [B, F,
+    resolves none.  The decode steps of the attention-bearing families
+    pass the family's keywords through (``seq_shard_axes=mesh`` for the
+    sequence-sharded step).  A batch is ``{"tokens"}``, plus ``"extra_embeds" [B, F,
     d]`` for ``vlm`` and ``"frames" [B, S_src, d]`` for ``encdec``.
     """
     fam = cfg.family
@@ -93,8 +95,8 @@ def get_model(cfg: ModelConfig, attn_backend=None) -> ModelApi:
             prefill=lambda p, b, max_len, dp_groups=1: moe.prefill(
                 p, b["tokens"], cfg, max_len, dp_groups,
                 layout=layout(max_len)),
-            decode_step=lambda p, t, c, dp_groups=1: moe.decode_step(
-                p, t, c, cfg, dp_groups, attn_backend=attn),
+            decode_step=lambda p, t, c, dp_groups=1, **kw: moe.decode_step(
+                p, t, c, cfg, dp_groups, attn_backend=attn, **kw),
             cache_seq_axes=moe.cache_seq_axes,
             ref_leaves=moe.ref_leaves,
         )
@@ -106,8 +108,8 @@ def get_model(cfg: ModelConfig, attn_backend=None) -> ModelApi:
             forward=lambda p, b: hybrid.forward(p, b["tokens"], cfg),
             prefill=lambda p, b, max_len: hybrid.prefill(
                 p, b["tokens"], cfg, max_len, layout=layout(max_len)),
-            decode_step=lambda p, t, c: hybrid.decode_step(
-                p, t, c, cfg, attn_backend=attn),
+            decode_step=lambda p, t, c, **kw: hybrid.decode_step(
+                p, t, c, cfg, attn_backend=attn, **kw),
             cache_seq_axes=hybrid.cache_seq_axes,
             ref_leaves=lambda p: hybrid.ref_leaves(cfg, p),
         )
@@ -119,8 +121,8 @@ def get_model(cfg: ModelConfig, attn_backend=None) -> ModelApi:
             forward=lambda p, b: encdec.forward(p, b, cfg),
             prefill=lambda p, b, max_len: encdec.prefill(
                 p, b, cfg, max_len, layout=layout(max_len)),
-            decode_step=lambda p, t, c: encdec.decode_step(
-                p, t, c, cfg, attn_backend=attn),
+            decode_step=lambda p, t, c, **kw: encdec.decode_step(
+                p, t, c, cfg, attn_backend=attn, **kw),
             cache_seq_axes=encdec.cache_seq_axes,
             ref_leaves=encdec.ref_leaves,
         )
@@ -134,8 +136,8 @@ def get_model(cfg: ModelConfig, attn_backend=None) -> ModelApi:
         prefill=lambda p, b, max_len: transformer.prefill(
             p, b["tokens"], cfg, max_len, extra_embeds=extra(b),
             layout=layout(max_len)),
-        decode_step=lambda p, t, c: transformer.decode_step(
-            p, t, c, cfg, attn_backend=attn),
+        decode_step=lambda p, t, c, **kw: transformer.decode_step(
+            p, t, c, cfg, attn_backend=attn, **kw),
         cache_seq_axes=transformer.cache_seq_axes,
         ref_leaves=transformer.ref_leaves,
     )

@@ -31,9 +31,17 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.backends import KVCacheLayout, get_backend
 from repro_torch.models import layers as L
 from repro_torch.models import param_tree as PT
-from repro_torch.models.attention import chunked_causal_attention
+from repro_torch.models.attention import (
+    chunked_causal_attention,
+    seq_shard_plan,
+    shard_devices,
+    sharded_decode_attend,
+)
 from repro_torch.models.kvcache import (
+    check_kv_capacity,
     init_attn_cache,
+    kv_capacity,
+    kv_layer,
     seq_axis_tree,
     update_layer_kv,
 )
@@ -273,13 +281,26 @@ def prefill(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
     return final_logits(x[:, -1:], params.ln_f, params.head, cfg), cache
 
 
-def _decode_attn(attn, q, k, v, k_cache, v_cache, at, cache_len):
+def _decode_attn(attn, q, k, v, k_cache, v_cache, at, cache_len,
+                 seq_shard_axes=None):
     """Insert the new token's K and V (in place) and run the backend over
     the cache's first ``cache_len`` positions.  ``at`` is either one
     position index ``[1]`` for the whole batch, or ``(rows, positions)``,
     two ``[B]`` indices: row ``b`` writes at its own ``positions[b]``.
+
+    With ``seq_shard_axes`` (a mesh), ``k_cache``/``v_cache`` are lists of
+    shard slices (``models/kvcache.py``) and ``at`` is the step's
+    ``attention.seq_shard_plan``: the token goes to the shard that owns
+    position ``cache_len - 1``, each shard runs the backend's split-KV
+    form over its slice and the partials merge by lse
+    (:func:`repro_torch.models.attention.sharded_decode_attend`).
     Returns o [B, 1, H, D]."""
     B, _, KV, D = k.shape
+    if seq_shard_axes is not None:
+        o, _, _ = sharded_decode_attend(
+            attn, q, k.reshape(B, KV, 1, D), v.reshape(B, KV, 1, D),
+            k_cache, v_cache, None, seq_shard_axes, plan=at)
+        return o
     for cache, new in ((k_cache, k), (v_cache, v)):
         new = new.to(cache.dtype)
         if isinstance(at, tuple):
@@ -289,11 +310,19 @@ def _decode_attn(attn, q, k, v, k_cache, v_cache, at, cache_len):
     return attn.decode(q, k_cache, v_cache, cache_len)
 
 
-def decode_positions(pos: torch.Tensor, B: int, S: int):
+def decode_positions(pos: torch.Tensor, B: int, S: int, seq_shard_axes=None):
     """``(positions [B, 1], at, cache_len)`` of a decode step at cache
     length ``pos`` (a scalar or ``[B]``) over a cache of capacity S: each
     row's RoPE position, where :func:`_decode_attn` writes its K and V,
-    and the keys it attends to."""
+    and the keys it attends to.  With ``seq_shard_axes`` (the capacity
+    split evenly over the mesh's entries), ``at`` is every shard's
+    ``attention.seq_shard_plan``, made once for the step's layers."""
+    if seq_shard_axes is not None:
+        n = len(shard_devices(seq_shard_axes))
+        rope = (pos.reshape(1, 1).expand(B, 1) if pos.dim() == 0
+                else pos.reshape(B, 1))
+        return (rope, seq_shard_plan(pos, S // n, seq_shard_axes),
+                (pos + 1).reshape(-1))
     if pos.dim() == 0:
         return (pos.reshape(1, 1).expand(B, 1), pos.reshape(1).long(),
                 (pos + 1).reshape(-1))
@@ -301,19 +330,21 @@ def decode_positions(pos: torch.Tensor, B: int, S: int):
     return pos.reshape(B, 1), at, (pos + 1).reshape(-1)
 
 
-def decode_layers(attn, blocks, x: torch.Tensor, k_cache: torch.Tensor,
-                  v_cache: torch.Tensor, cfg: ModelConfig, step,
-                  ffn: Callable) -> torch.Tensor:
+def decode_layers(attn, blocks, x: torch.Tensor, k_cache, v_cache,
+                  cfg: ModelConfig, step, ffn: Callable,
+                  seq_shard_axes=None) -> torch.Tensor:
     """One token's hidden states ``x [B, 1, d]`` through ``blocks``, whose
-    caches are ``k_cache``/``v_cache [L, B, KV, S, D]`` (written in place);
-    ``step`` is :func:`decode_positions`' triple."""
+    caches are ``k_cache``/``v_cache [L, B, KV, S, D]`` (written in place),
+    or lists of shards with ``seq_shard_axes``; ``step`` is
+    :func:`decode_positions`' triple."""
     positions, at, cache_len = step
     for i, block in enumerate(blocks):
         hn = L.rms_norm(x, block.ln_attn, cfg.norm_eps)
         q, k, v = L.qkv_project(block.attn, hn)
         q = L.apply_rope(q, positions, cfg.rope_theta)
         k = L.apply_rope(k, positions, cfg.rope_theta)
-        o = _decode_attn(attn, q, k, v, k_cache[i], v_cache[i], at, cache_len)
+        o = _decode_attn(attn, q, k, v, kv_layer(k_cache, i),
+                         kv_layer(v_cache, i), at, cache_len, seq_shard_axes)
         x = x + L.out_project(block.attn, o.to(x.dtype), x.dtype)
         x = ffn(block, x)
     return x
@@ -321,7 +352,8 @@ def decode_layers(attn, blocks, x: torch.Tensor, k_cache: torch.Tensor,
 
 def decode_step(
     params: Transformer, token: torch.Tensor, cache: Cache, cfg: ModelConfig,
-    *, attn_backend=None, layout: Optional[KVCacheLayout] = None,
+    *, seq_shard_axes=None, attn_backend=None,
+    layout: Optional[KVCacheLayout] = None,
 ) -> Tuple[torch.Tensor, Cache]:
     """One decode step.  token [B, 1] → logits [B, 1, V] (fp32).
 
@@ -342,16 +374,25 @@ def decode_step(
     ``attn_backend``: :class:`repro_torch.core.backends.AttentionBackend`
     name or instance; ``None`` resolves to the attention kind's default,
     ``torch-splitk``.  ``layout``: the :class:`KVCacheLayout` the cache was
-    allocated with; when given, the cache capacity is checked against it.
+    allocated with; when given, the cache capacity is checked against it
+    (each shard's, of a sharded cache).
+
+    ``seq_shard_axes``: a :class:`repro_torch.launch.mesh.Mesh` (or a list
+    of devices) whose entries hold the cache's sequence shards, in order:
+    ``cache["k"]``/``["v"]`` are then lists of ``[L, B, KV, S_loc, D]``
+    shards, the new token's K and V go to the shard that owns its
+    position and the partials of every shard merge by lse
+    (``attention.sharded_decode_attend``).  ``None``: the cache is one
+    tensor.
     """
     attn = get_backend("attention", attn_backend)
-    S = int(cache["k"].shape[3])
+    S = kv_capacity(cache["k"])
     if layout is not None:
-        layout.check_capacity(S)
+        check_kv_capacity(layout, cache["k"])
     x = L.embed_tokens(params.embed, token)
-    step = decode_positions(cache["length"], x.shape[0], S)
+    step = decode_positions(cache["length"], x.shape[0], S, seq_shard_axes)
     x = decode_layers(attn, params.blocks, x, cache["k"], cache["v"], cfg,
-                      step, _dense_ffn(cfg))
+                      step, _dense_ffn(cfg), seq_shard_axes)
     logits = final_logits(x, params.ln_f, params.head, cfg)
     return logits, {**cache, "length": cache["length"] + 1}
 

@@ -171,6 +171,7 @@ class ServingEngine:
         num_slots: int = 4,
         max_request_len: Optional[int] = None,
         mesh=None,
+        axis_name: str = "seq",
     ):
         """Serve a mixed-length request stream with continuous batching.
 
@@ -186,9 +187,13 @@ class ServingEngine:
 
         ``max_request_len`` bounds prompt + new tokens over the stream
         (default: measured from ``requests``).  On the card the decode step
-        runs from a CUDA graph (:class:`RequestScheduler`).  ``mesh`` (the
-        reference's sequence-sharded step) is ROADMAP.md Queue 1 item 9 and
-        raises.
+        runs from a CUDA graph (:class:`RequestScheduler`).  ``mesh`` (a
+        :class:`repro_torch.launch.mesh.Mesh`) switches the decode step to
+        the sequence-sharded one over its devices along ``axis_name``: the
+        slot capacity must then split into that many whole ``block_k``
+        blocks (the scheduler raises otherwise).  At one shard the stream
+        is bit for bit the unsharded one; at more, its tokens are the same
+        and its logits within 2e-2.
 
         The fabric engine has no mid-batch admission point (stage workers
         hold per-batch KV), so it serves each request alone through the
@@ -196,10 +201,6 @@ class ServingEngine:
         """
         from repro_torch.serving.scheduler import RequestScheduler
 
-        if mesh is not None:
-            raise NotImplementedError(
-                "generate_stream(mesh=...) (the sequence-sharded step) is not "
-                "in repro_torch yet: ROADMAP.md Queue 1 item 9")
         requests = list(requests)
         if self.engine == "fabric":
             return self._stream_fabric(requests)
@@ -215,7 +216,7 @@ class ServingEngine:
         sched = RequestScheduler(
             self.model, self.params, num_slots=num_slots,
             slot_capacity=layout.padded_len(max_request_len), layout=layout,
-            device=self.device)
+            device=self.device, mesh=mesh, axis_name=axis_name)
         return sched.run(requests)
 
     def _stream_fabric(self, requests):

@@ -16,8 +16,10 @@ existing blocks.  This module turns that alignment into an allocator:
   ``[*rest, S, D]`` (``rest = (L, 1, KV)`` for the dense family).
   ``gather`` rebuilds the slots' contiguous caches from block tables in one
   indexing kernel, straight into the decode kernel's layout ``[L, slots,
-  KV, S_slot, D]``; ``scatter_token`` writes each slot's newly decoded K
-  and V back to its physical page.
+  KV, S_slot, D]`` (or, split over D sequence shards, shard-major ``[D, L,
+  slots, KV, S_slot / D, D]``: each shard one contiguous block of the
+  same buffer, from the same one kernel); ``scatter_token`` writes each
+  slot's newly decoded K and V back to its physical page.
 
 Trees are nested dicts and lists (the moe cache's ``stacks``) whose leaves
 are tensors, with ``None`` at the leaves a half does not hold
@@ -271,51 +273,80 @@ class KVBlockPool:
 
     # -- device-side gather / scatter (inside the fixed-shape step) -------
 
-    def gather(self, buffers: Tree, tables: torch.Tensor) -> Tree:
+    def gather(self, buffers: Tree, tables: torch.Tensor,
+               shards: int = 0) -> Tree:
         """Rebuild contiguous per-slot caches from block tables.
 
         ``tables``: int64 ``[slots, table_width]`` on the pool's device.
         Returns the paged half of the cache tree for a batch of the slots:
         ``[L, slots, *mid, S_slot, D]`` per leaf, the layout the decode
         kernel reads, made by one indexing kernel (no transpose after it).
-        Launches kernels only: no host sync, so a CUDA graph can hold it.
+        With ``shards`` = D >= 1, the S axis split into D sequence shards,
+        shard-major: ``[D, L, slots, *mid, S_slot / D, D]``, shard ``d``
+        holding positions ``[d · S_slot / D, (d + 1) · S_slot / D)``, so
+        each shard's ``[L, slots, *mid, S_slot / D, D]`` is one contiguous
+        block (the decode kernel takes it as it is), from the same one
+        kernel and the same bytes.  Launches kernels only: no host sync, so
+        a CUDA graph can hold it.
         """
         bk = self.block_k
+        slots = tables.shape[0]
+        S = self.table_width * bk
+        n = max(1, int(shards))
+        if S % n:
+            raise ValueError(f"a capacity of {S} does not split into "
+                             f"{n} sequence shards")
 
         def g(ax, buf):
             if ax is None:
                 return None
             flat = _words(_flat(buf))                # [nb*bk, L, M, D']
             L, M = flat.shape[1:3]
-            slots = tables.shape[0]
             dev = buf.device
             rows = (tables[:, :, None] * bk + _arange(bk, dev)).reshape(
-                1, slots, 1, -1)                     # [1, slots, 1, S]
-            out = flat[rows, _arange(L, dev).view(L, 1, 1, 1),
-                       _arange(M, dev).view(1, 1, M, 1)].view(buf.dtype)
-            return out.view((L, slots) + tuple(buf.shape[4:-1])
-                            + (rows.shape[-1], buf.shape[-1]))
+                slots, n, S // n).transpose(0, 1).reshape(
+                n, 1, slots, 1, S // n).contiguous()  # [n, 1, slots, 1, S/n]
+            out = flat[rows, _arange(L, dev).view(1, L, 1, 1, 1),
+                       _arange(M, dev).view(1, 1, 1, M, 1)].view(buf.dtype)
+            shape = ((L, slots) + tuple(buf.shape[4:-1])
+                     + (S // n, buf.shape[-1]))
+            return out.view((n,) + shape) if shards else out.view(shape)
 
         return tree_map(g, self.seq_axes, buffers)
 
     def chunks_at(self, paged: Tree, positions: torch.Tensor) -> Tree:
         """The K and V each slot wrote this step: sequence position
         ``positions[slot]`` of every gathered leaf ``[L, slots, *mid, S,
-        D]`` -> ``[L, slots, *mid, D]``.  Positions are clipped to the
-        capacity, as the write in ``decode_step`` clips them."""
+        D]`` -> ``[L, slots, *mid, D]``, on the pool's device.  Positions
+        are clipped to the capacity, as the write in ``decode_step`` clips
+        them.  A leaf that is a list of D sequence shards (``[L, slots,
+        *mid, S / D, D]`` each, the sharded step's) is read on the shard
+        that owns each slot's position."""
 
-        def one(ax, leaf):
-            if ax is None:
-                return None
+        def at(leaf, pos):
             L, slots = leaf.shape[:2]
             S, D = leaf.shape[-2:]
             M = math.prod(leaf.shape[2:-2])
             dev = leaf.device
-            pos = positions.long().clamp(max=S - 1).view(1, slots, 1)
+            pos = pos.to(dev).view(1, slots, 1)
             out = leaf.reshape(L, slots, M, S, D)[
                 _arange(L, dev).view(L, 1, 1), _arange(slots, dev).view(1, slots, 1),
                 _arange(M, dev).view(1, 1, M), pos]
             return out.view(tuple(leaf.shape[:-2]) + (D,))
+
+        def one(ax, leaf):
+            if ax is None:
+                return None
+            if isinstance(leaf, torch.Tensor):
+                return at(leaf, positions.long().clamp(max=leaf.shape[-2] - 1))
+            s_loc = leaf[0].shape[-2]
+            pos = positions.long().clamp(max=s_loc * len(leaf) - 1)
+            owner, local = pos // s_loc, pos % s_loc
+            out = at(leaf[0], local).to(positions.device)
+            for d, shard in enumerate(leaf[1:], start=1):
+                mine = (owner == d).view((1, -1) + (1,) * (out.dim() - 2))
+                out = torch.where(mine, at(shard, local).to(out.device), out)
+            return out
 
         return tree_map(one, self.seq_axes, paged)
 

@@ -2,26 +2,49 @@
 and the :class:`KVCacheLayout` its caches need.
 
 The platform is the device type the engine serves on (``"cuda"`` or
-``"cpu"``), passed in by the caller; the router never guesses it.  The
-reference's serverless and slice routing (``route_serverless``,
-``route_tpu``) and the continuous-batching plan (``route_serving_plan``)
-wait for ROADMAP.md Queue 1 items 9 and 6.
+``"cpu"``), passed in by the caller; the router never guesses it.
+:func:`route_serverless` picks the serverless channel and worker count
+from the cost model (``core/cost_model.recommend_configuration``).  The
+reference's slice routing (``route_tpu``) waits for ROADMAP.md Queue 1.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Literal, Optional
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.cost_model import recommend_configuration
 from repro_torch.core.backends import (
     KVCacheLayout,
     attention_backend_for,
     cache_layout_for,
 )
 
-__all__ = ["DecodePlan", "ServingPlan", "route_attention_backend",
-           "route_decode_plan", "route_serving_plan"]
+__all__ = ["DecodePlan", "ServingPlan", "ServerlessRoute",
+           "route_attention_backend", "route_decode_plan",
+           "route_serving_plan", "route_serverless"]
+
+Channel = Literal["serial", "queue", "object"]
+
+
+@dataclasses.dataclass
+class ServerlessRoute:
+    channel: Channel
+    workers: int
+
+
+def route_serverless(model_bytes: int, per_layer_exchange_bytes: float,
+                     n_layers: int, memory_mb: int = 4000) -> ServerlessRoute:
+    """The serverless execution route of a request profile: the channel
+    (serial, queue or object) and the worker count P that
+    ``recommend_configuration`` picks for the model's bytes, the bytes a
+    layer exchanges and the depth, with ``memory_mb`` per worker."""
+    ch, p, _ = recommend_configuration(
+        model_bytes, per_layer_exchange_bytes, n_layers,
+        memory_mb_per_worker=memory_mb,
+    )
+    return ServerlessRoute(channel=ch, workers=p)
 
 
 @dataclasses.dataclass

@@ -20,7 +20,16 @@ stream instead, with admission control:
   kernel reads one length per batch row, and the moe family's step routes
   each row as its own token group;
 * requests admitted mid-decode as slots free up, retired the step their
-  token budget completes; admission order is FIFO over (arrival, rid).
+  token budget completes; admission order is FIFO over (arrival, rid);
+* over a mesh (``mesh``, ``axis_name``), the sequence-sharded step: the
+  pool gathers the paged leaves shard-major, the S axis split into one
+  slice a device along ``axis_name`` (each a contiguous block, no copy on
+  a mesh that repeats the scheduler's device), and the family's
+  ``decode_step(..., seq_shard_axes=...)`` writes the new token on the
+  shard that owns its position, runs the decode backend once a shard and
+  merges the partials by lse (``models/attention.py::
+  sharded_decode_attend``).  The slot capacity must split into D whole
+  ``block_k`` blocks; a capacity that does not raises.
 
 The step is gather, ``decode_step``, the write of each slot's new K and V
 to its page (an inactive slot's to the sink page), then argmax.  No
@@ -30,14 +39,17 @@ the scheduler's own tensors, which the graph holds.  Only admission and
 retirement upload the block tables and the active mask.  The tokens each
 step emits stay on the device until the stream ends.
 
-Bitwise contract (``tests/test_torch_continuous_batching.py``): a request
+Bitwise contract (``tests/test_torch_cb_*.py``): a request
 served in a mixed stream gives the same tokens and final-step logits, bit
 for bit, as the same request served alone through a scheduler with the
 same ``num_slots`` and slot capacity: the step's products run at M =
 ``num_slots`` either way, a row never reads another, and masked positions
 contribute exactly +0.0 whatever stale values reused pages hold (see
 ``kv_pool.py``).  Against ``generate`` at B = 1, whose products run at
-M = 1, the tokens are identical and the logits agree within 1e-4.
+M = 1, the tokens are identical and the logits agree within 1e-4.  The
+sharded step at D = 1 is bit for bit the unsharded one (the merge of one
+partial is exact); at D > 1 the partial sums are reordered, so tokens
+are held equal and logits within 2e-2 (``tests/test_torch_sharded_*``).
 """
 
 from __future__ import annotations
@@ -114,14 +126,21 @@ class RequestScheduler:
 
     ``device``: where the params live and the step runs, ``"cuda"`` by
     default (which raises where no card is present) or ``"cpu"``.
-    ``graph``: capture the step in a CUDA graph (default: on CUDA); a
-    failed capture raises.  ``graph=False`` runs the same step eagerly.
+    ``graph``: capture the step in a CUDA graph (default: on CUDA, where
+    every entry of the mesh, if any, is ``device``); a failed capture
+    raises.  ``graph=False`` runs the same step eagerly.
+
+    ``mesh``/``axis_name``: the sequence-sharded step over the mesh's
+    devices along ``axis_name`` (:class:`repro_torch.launch.mesh.Mesh`);
+    shards on another device than ``device`` get a copy of their slice
+    each step, and such a step runs eagerly.
     """
 
     def __init__(self, model, params, num_slots: int, slot_capacity: int,
                  layout: Optional[KVCacheLayout] = None,
                  num_blocks: Optional[int] = None, device="cuda",
-                 graph: Optional[bool] = None):
+                 graph: Optional[bool] = None, mesh=None,
+                 axis_name: str = "seq"):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -129,9 +148,20 @@ class RequestScheduler:
                 "is available; pass device='cpu' to serve on the CPU")
         if self.device.type not in ("cuda", "cpu"):
             raise ValueError(f"RequestScheduler runs on cuda or cpu, not {device!r}")
-        self.graph = self.device.type == "cuda" if graph is None else bool(graph)
+        self.mesh, self.axis_name = mesh, axis_name
+        # the shards: the mesh's devices along axis_name, as a 1-D mesh
+        self._seq_mesh = None if mesh is None else mesh.axis_mesh(axis_name)
+        local = (mesh is None or all(
+            d.type == self.device.type
+            and (d.index or 0) == (self.device.index or 0)
+            for d in self._seq_mesh.flat()))
+        self.graph = (self.device.type == "cuda" and local if graph is None
+                      else bool(graph))
         if self.graph and self.device.type != "cuda":
             raise ValueError("a CUDA graph of the step needs device='cuda'")
+        if self.graph and not local:
+            raise ValueError("a CUDA graph of the sharded step needs every "
+                             "mesh entry on the scheduler's device")
         p = next(iter(params.parameters()))
         if p.device.type != self.device.type:
             raise ValueError(f"params are on {p.device}, the scheduler on "
@@ -142,6 +172,8 @@ class RequestScheduler:
         self.layout = layout or KVCacheLayout()
         self.layout.check_capacity(slot_capacity)
         self.slot_capacity = int(slot_capacity)
+        if mesh is not None:
+            self.check_capacity(self.slot_capacity)
         if num_blocks is None:
             num_blocks = (RESERVED_BLOCKS + self.num_slots
                           * self.layout.blocks_for(slot_capacity))
@@ -157,6 +189,9 @@ class RequestScheduler:
         self.seq_axes = model.cache_seq_axes(template)
         self.pool = KVBlockPool.build(template, self.seq_axes, self.layout,
                                       num_blocks)
+        if mesh is not None and self.pool.table_width == 0:
+            raise ValueError(f"family {model.cfg.family!r} has no growing KV "
+                             f"cache to shard over a mesh")
         S = self.num_slots
 
         def stacked(ax, leaf):
@@ -193,6 +228,19 @@ class RequestScheduler:
         if self.graph:
             self._capture()
 
+    def check_capacity(self, slot_capacity: int) -> None:
+        """Raise unless ``slot_capacity`` splits into D (the mesh's size
+        along ``axis_name``) slices of whole ``layout.block_k`` blocks:
+        each shard's slice is a capacity the decode backend takes as it
+        is.  Nothing is padded to make it split."""
+        D, bk = self._seq_mesh.size, max(1, int(self.layout.block_k))
+        if slot_capacity % (D * bk):
+            raise ValueError(
+                f"slot capacity {slot_capacity} does not split into {D} "
+                f"sequence shards of whole block_k={bk} blocks; pick "
+                f"max_request_len so that the capacity is a multiple of "
+                f"{D * bk}")
+
     # ------------------------------------------------------------------ #
     # the fixed-shape step
 
@@ -201,10 +249,21 @@ class RequestScheduler:
         scheduler's own tensors and the pool's pages."""
         state, pool = self._state, self.pool
         positions = state["length"].clone()                  # [slots]
-        paged = pool.gather(pool.buffers, self._tables_dev)
+        kw = {}
+        if self.mesh is None:
+            paged = pool.gather(pool.buffers, self._tables_dev)
+        else:
+            devices = self._seq_mesh.flat()
+            paged = tree_map(
+                lambda ax, leaf: None if ax is None else [
+                    t.to(d) for t, d in zip(leaf.unbind(0), devices)],
+                self.seq_axes,
+                pool.gather(pool.buffers, self._tables_dev,
+                            shards=len(devices)))
+            kw["seq_shard_axes"] = self._seq_mesh
         cache = merge_cache(paged, state, self.seq_axes)
         logits, new_cache = self.model.decode_step(self.params, self._tokens,
-                                                   cache)
+                                                   cache, **kw)
         new_paged, new_state = split_cache(new_cache, self.seq_axes)
         pool.scatter_token(pool.buffers, pool.chunks_at(new_paged, positions),
                            self._tables_dev, positions, self._active_dev)

@@ -1,0 +1,31 @@
+"""Continuous batching of zamba2-7b (hybrid: its sites' KV stack paged like a layer stack) at its ``reduced()`` size, against the
+JAX package's scheduler on the CPU, through ``dense-ref``: a request in a mixed
+stream (three arrival orders, and a two-wave page-reuse stream) gives the
+same tokens and final logits, bit for bit, as itself served alone through
+a scheduler of the same width and capacity; the tokens of the port's
+``generate`` at B = 1 (logits within 1e-4); and the reference's
+``RequestScheduler``'s on the same fp32-cast params (logits within 1e-4).
+The setup and the contracts are ``tests/_torch_cb_common.py``'s.
+"""
+
+import pytest
+
+pytest.importorskip("jax")
+
+from _torch_cb_common import (  # noqa: E402
+    BACKENDS,
+    DifferentialParity,
+    case_ids,
+    make_diff_case,
+)
+
+CASES = [(fam, be) for fam in ('hybrid',) for be in BACKENDS[fam] if be == 'dense-ref']
+
+
+@pytest.fixture(scope="module", params=CASES, ids=case_ids(CASES))
+def diff_case(request):
+    return make_diff_case(*request.param)
+
+
+class TestDifferentialParity(DifferentialParity):
+    """Stream ≡ solo bit for bit; ≈ ``generate`` and the reference."""

@@ -1,43 +1,31 @@
 """The port's continuous batching (``repro_torch.serving.scheduler`` over
-``serving.kv_pool``) against the JAX package's scheduler, on the CPU, at
-the ``reduced()`` sizes of internlm2-1.8b (dense), deepseek-moe-16b (moe,
-at the default capacity factor of 1.25, each slot routed as its own token
-group), mamba2-370m (ssm), zamba2-7b (hybrid: its sites' KV stack paged
-like a layer stack), seamless-m4t-medium (encdec: frames at admission, the
-cross-attention KV and ``src_length`` slot-resident) and internvl2-2b
-(vlm: image embeddings at admission).  The reference's encoder-decoder
-prefill is compiled with XLA's excess precision off (``_xla_strict``), so
-that its bf16 encoder rounds where its code says, as the port's does.
+``serving.kv_pool``) against the JAX package's, on the CPU, at the
+``reduced()`` sizes of internlm2-1.8b (dense), deepseek-moe-16b (moe),
+mamba2-370m (ssm), zamba2-7b (hybrid), seamless-m4t-medium (encdec) and
+internvl2-2b (vlm): the scheduler, its pool and the per-row decode.
 
-Three contracts, for every backend, arrival order and the two-wave
-page-reuse stream:
+The differential streams (a request in a mixed stream bit for bit itself
+served alone, within 1e-4 of the port's ``generate`` at B = 1 and of the
+reference's ``RequestScheduler``, for every backend, arrival order and the
+two-wave page-reuse stream) are in ``tests/test_torch_cb_*.py``, one file
+a family (two for the hybrid), over ``tests/_torch_cb_common.py``.
 
-* **inside the port, bit for bit**: a request served in a mixed stream gives
-  the same tokens and final-step logits as the same request served alone
-  through a scheduler of the same width and slot capacity (the step's
-  products run at M = ``num_slots`` either way; this is what shows that
-  slots do not leak into each other and reused pages leak no stale data);
-* **against the port's ``generate`` at B = 1**: identical tokens, logits
-  within 1e-4 (its products run at M = 1, whose rows are not bit for bit
-  those of M = 2 on this CPU);
-* **against the reference's ``RequestScheduler``** on the same fp32-cast
-  params: identical tokens, logits within 1e-4, the reference's fp32 model
-  tolerance (its own bitwise asserts miss by ~1 ulp on this image).
-
-Also here: the allocator's random interleavings (run beside the reference's
-allocator on the same seeds), freed pages never read by a live request,
-the pool's block-table round trips, the cache classification against the
-reference's ``seq_axis_tree`` key by key, continuous against padded static
-batching, the up-front oversize check, the decode backends with one cache
-length per batch row (bit for bit the per-row calls, and within 1e-5 of
-the reference's Pallas kernel under ``jax.vmap`` in interpret mode), and
-``transformer.decode_step`` with ``[B]`` lengths against B = 1 steps
-(1e-4).  The CUDA graph of the step is checked on the card
-(``tests/test_torch_kernels_gpu.py``, ``chip_smoke.py``).
+Here: the scheduler's slot-step saving over padded static batching, the
+up-front oversize check, the step's inputs written in place, vacant slots
+past the capacity, the device, graph and mesh options (the sequence-sharded
+step's own tests are ``tests/test_torch_sharded_*.py``), the serving plan
+against the reference's; the allocator's random interleavings (run beside
+the reference's allocator on the same seeds), freed pages never read by a
+live request, the pool's block-table round trips, the cache classification against the reference's ``seq_axis_tree``
+key by key, the decode backends with one cache length per batch row (bit
+for bit the per-row calls, and within 1e-5 of the reference's Pallas
+kernel under ``jax.vmap`` in interpret mode), and every family's
+``decode_step`` with ``[B]`` lengths against B = 1 steps (1e-4).  The CUDA
+graph of the step is checked on the card (``tests/test_torch_kernels_gpu.py``,
+``chip_smoke.py``).
 """
 
 import dataclasses
-import functools
 
 import numpy as np
 import pytest
@@ -52,20 +40,11 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import get_config as ref_get_config  # noqa: E402
 from repro.configs.base import ShapeConfig  # noqa: E402
-from repro.core.backends import ChunkedLseAttention as RefChunked  # noqa: E402
-from repro.core.backends import PallasSplitKAttention  # noqa: E402
 from repro.kernels.decode_attention import ops as ref_decode_ops  # noqa: E402
-from repro.models import encdec as ref_encdec  # noqa: E402
-from repro.models import hybrid as ref_hybrid  # noqa: E402
-from repro.models import mamba2 as ref_mamba2  # noqa: E402
-from repro.models import moe as ref_moe  # noqa: E402
-from repro.models import transformer as ref_transformer  # noqa: E402
 from repro.models.registry import cache_specs  # noqa: E402
 from repro.models.registry import get_model as ref_get_model  # noqa: E402
 from repro.serving import kv_pool as ref_kv_pool  # noqa: E402
 from repro.serving import router as ref_router  # noqa: E402
-from repro.serving.engine import ServingEngine as RefEngine  # noqa: E402
-from repro.serving.scheduler import Request as RefRequest  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.backends import (  # noqa: E402
     ChunkedLseAttention,
@@ -74,14 +53,8 @@ from repro_torch.core.backends import (  # noqa: E402
     TorchSplitKAttention,
 )
 from repro_torch.kernels.decode_attention import ops as decode_ops  # noqa: E402
-from repro_torch.models import (  # noqa: E402
-    encdec,
-    hybrid,
-    kvcache,
-    mamba2,
-    moe,
-    transformer,
-)
+from repro_torch.launch.mesh import make_mesh  # noqa: E402
+from repro_torch.models import kvcache  # noqa: E402
 from repro_torch.models.registry import get_model  # noqa: E402
 from repro_torch.serving import router  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
@@ -94,171 +67,21 @@ from repro_torch.serving.kv_pool import (  # noqa: E402
     split_cache,
 )
 from repro_torch.serving.scheduler import Request, RequestScheduler  # noqa: E402
-from _xla_strict import strict_jit  # noqa: E402
-
-BLOCK_K = 4          # a small kernel block, so pool pages are a few tokens
-NUM_SLOTS = 2
-TOL = dict(rtol=1e-4, atol=1e-4)
-KERNEL_TOL = dict(rtol=1e-5, atol=1e-5)
-
-FAMILIES = {"dense": ("internlm2-1.8b", ref_transformer, transformer),
-            "moe": ("deepseek-moe-16b", ref_moe, moe),
-            "ssm": ("mamba2-370m", ref_mamba2, mamba2),
-            "hybrid": ("zamba2-7b", ref_hybrid, hybrid),
-            "encdec": ("seamless-m4t-medium", ref_encdec, encdec),
-            "vlm": ("internvl2-2b", ref_transformer, transformer)}
-# the ssm family has no decode attention: one (unused) backend
-BACKENDS = {"dense": ("dense-ref", "chunked-lse", "torch-splitk"),
-            "moe": ("dense-ref", "torch-splitk"),
-            "ssm": ("dense-ref",),
-            "hybrid": ("dense-ref", "torch-splitk"),
-            "encdec": ("dense-ref", "torch-splitk"),
-            "vlm": ("dense-ref", "torch-splitk")}
-# the frontend input each admission carries (random from the stream's seed)
-EXTRA_KEY = {"vlm": "extra_embeds", "encdec": "frames"}
-PORT_BACKEND = {
-    "dense-ref": lambda: DenseRefAttention(),
-    "chunked-lse": lambda: ChunkedLseAttention(kv_chunk=3),
-    "torch-splitk": lambda: TorchSplitKAttention(block_k=BLOCK_K, device="cpu"),
-}
-REF_BACKEND = {
-    "dense-ref": lambda: "dense-ref",
-    "chunked-lse": lambda: RefChunked(kv_chunk=3),
-    "torch-splitk": lambda: PallasSplitKAttention(block_k=BLOCK_K),
-}
-ARRIVAL_ORDERS = {
-    "together": lambda n: [0] * n,
-    "staggered": lambda n: list(range(n)),
-    "reversed": lambda n: list(range(n - 1, -1, -1)),
-}
-
-
-@functools.lru_cache(maxsize=None)
-def _family(fam):
-    """(family, port cfg, reference cfg, reference fp32 params, the port's
-    fp32 params): the reference's init, cast to fp32 and carried over."""
-    arch, ref_mod, mod = FAMILIES[fam]
-    cfg, ref_cfg = get_config(arch).reduced(), ref_get_config(arch).reduced()
-    params = jax.tree.map(lambda a: a.astype(jnp.float32),
-                          ref_mod.init(jax.random.key(0), ref_cfg))
-    port = mod.params_from_arrays(
-        cfg, jax.tree.map(lambda a: None if a is None else np.asarray(a), params),
-        device="cpu", dtype=torch.float32)
-    return fam, cfg, ref_cfg, params, port
+from _torch_cb_common import (  # noqa: E402
+    BLOCK_K,
+    EXTRA_KEY,
+    FAMILIES,
+    KERNEL_TOL,
+    NUM_SLOTS,
+    TOL,
+    _family,
+    _stream_capacity,
+)
 
 
 @pytest.fixture(scope="module", params=sorted(FAMILIES))
 def family(request):
     return _family(request.param)
-
-
-def _mk_requests(cfg, rng, n, arrivals):
-    """Ragged prompts (2..7) and budgets (1..4), as the reference's suite,
-    with the family's frontend embeddings ``[1, F, d]``."""
-    reqs = [Request(rid=i,
-                    prompt=rng.integers(0, cfg.vocab_size,
-                                        (int(rng.integers(2, 8)),)).astype(np.int32),
-                    max_new_tokens=int(rng.integers(1, 5)),
-                    arrival=int(arrivals[i]))
-            for i in range(n)]
-    if cfg.family in EXTRA_KEY:
-        for r in reqs:
-            r.extra = {EXTRA_KEY[cfg.family]: rng.standard_normal(
-                (1, cfg.frontend_tokens, cfg.d_model)).astype(np.float32)}
-    return reqs
-
-
-def _ref_requests(reqs):
-    return [RefRequest(rid=r.rid, prompt=r.prompt,
-                       max_new_tokens=r.max_new_tokens, extra=r.extra,
-                       arrival=r.arrival)
-            for r in reqs]
-
-
-def _stream_capacity(eng, reqs):
-    need = max(np.asarray(r.prompt).reshape(-1).shape[0] + r.max_new_tokens
-               for r in reqs) + (eng.cfg.frontend_tokens or 0)
-    return eng.cache_layout(need).padded_len(need)
-
-
-ENGINE_CASES = [(fam, be) for fam in sorted(FAMILIES) for be in BACKENDS[fam]]
-
-
-@pytest.fixture(scope="module", params=ENGINE_CASES,
-                ids=[f"{f}-{b}" for f, b in ENGINE_CASES])
-def diff_case(request):
-    """(port engine, reference engine, requests, capacity, solo, static):
-    each request's tokens and final logits served alone through a port
-    scheduler of the stream's width and capacity (``solo``), and through
-    the port's ``generate`` at B = 1 and ``max_len = capacity``
-    (``static``)."""
-    fam, backend = request.param
-    _, cfg, ref_cfg, params, port = _family(fam)
-    eng = ServingEngine(cfg, params=port, device="cpu",
-                        attn_backend=PORT_BACKEND[backend]())
-    ref_eng = RefEngine(ref_cfg, params=params,
-                        attn_backend=REF_BACKEND[backend]())
-    if fam == "encdec":
-        ref_eng._prefill = strict_jit(ref_eng.model.prefill, static_argnums=(2,))
-    reqs = _mk_requests(cfg, np.random.default_rng(7), 4, np.zeros(4, int))
-    cap = _stream_capacity(eng, reqs)
-    assert cap == ref_eng.cache_layout(cap).padded_len(cap)
-    solo, static = {}, {}
-    for r in reqs:
-        res = eng.generate_stream([r], num_slots=NUM_SLOTS, max_request_len=cap)
-        solo[r.rid] = (res[0].tokens, res[0].final_logits)
-        g = eng.generate(np.asarray(r.prompt)[None], r.max_new_tokens,
-                         extra=r.extra, max_len=cap)
-        static[r.rid] = (g.tokens[0], g.prefill_logits[0])
-    return eng, ref_eng, reqs, cap, solo, static
-
-
-def _hold(results, ref_results, solo, static, n_base, label):
-    """The three contracts, request by request."""
-    ref = {r.rid: r for r in ref_results}
-    assert sorted(ref) == sorted(r.rid for r in results)
-    for res in results:
-        base = res.rid % n_base
-        msg = f"{label} rid={res.rid}"
-        assert res.final_logits.dtype == np.float32
-        np.testing.assert_array_equal(res.tokens, solo[base][0], err_msg=msg)
-        assert np.array_equal(res.final_logits, solo[base][1]), \
-            f"{msg}: logits not bit for bit the solo run's"
-        np.testing.assert_array_equal(res.tokens, static[base][0], err_msg=msg)
-        np.testing.assert_allclose(res.final_logits, static[base][1],
-                                   err_msg=msg, **TOL)
-        np.testing.assert_array_equal(res.tokens, ref[res.rid].tokens,
-                                      err_msg=msg)
-        np.testing.assert_allclose(res.final_logits, ref[res.rid].final_logits,
-                                   err_msg=msg, **TOL)
-
-
-class TestDifferentialParity:
-    """Stream ≡ solo bit for bit; ≈ ``generate`` and the reference."""
-
-    @pytest.mark.parametrize("order", sorted(ARRIVAL_ORDERS))
-    def test_stream_matches_solo_static_and_reference(self, diff_case, order):
-        eng, ref_eng, base, cap, solo, static = diff_case
-        arrivals = ARRIVAL_ORDERS[order](len(base))
-        reqs = [dataclasses.replace(r, arrival=a) for r, a in zip(base, arrivals)]
-        results = eng.generate_stream(reqs, num_slots=NUM_SLOTS,
-                                      max_request_len=cap)
-        want = ref_eng.generate_stream(_ref_requests(reqs), num_slots=NUM_SLOTS,
-                                       max_request_len=cap)
-        _hold(results, want, solo, static, len(base), order)
-
-    def test_mid_stream_admission_reuses_freed_pages(self, diff_case):
-        """Two waves of the same requests under new rids: wave 2 decodes on
-        pages wave 1 dirtied, and no stale value reaches its logits."""
-        eng, ref_eng, base, cap, solo, static = diff_case
-        wave2 = [dataclasses.replace(r, rid=r.rid + len(base), arrival=3)
-                 for r in base]
-        results = eng.generate_stream(list(base) + wave2, num_slots=NUM_SLOTS,
-                                      max_request_len=cap)
-        want = ref_eng.generate_stream(_ref_requests(list(base) + wave2),
-                                       num_slots=NUM_SLOTS, max_request_len=cap)
-        assert len(results) == 2 * len(base)
-        _hold(results, want, solo, static, len(base), "two waves")
 
 
 def _dense_engine():
@@ -358,8 +181,18 @@ class TestScheduler:
         with pytest.raises(ValueError, match="CUDA graph"):
             RequestScheduler(eng.model, eng.params, 2, 8, device="cpu",
                              graph=True)
-        with pytest.raises(NotImplementedError, match="item 9"):
-            eng.generate_stream([], mesh=object())
+        # the sequence-sharded step over a mesh of two CPU entries: one
+        # request's tokens as the unsharded step's, and at one shard its
+        # logits bit for bit
+        req = [Request(0, np.arange(5), 3)]
+        plain = eng.generate_stream(req, max_request_len=16)[0]
+        for d in (1, 2):
+            sharded = eng.generate_stream(
+                req, max_request_len=16, axis_name="seq",
+                mesh=make_mesh((d,), ("seq",), ["cpu"] * d))[0]
+            np.testing.assert_array_equal(sharded.tokens, plain.tokens)
+            if d == 1:
+                assert np.array_equal(sharded.final_logits, plain.final_logits)
         # a family without a frontend ignores a request's extra inputs, as
         # the reference's dense model does
         plain, framed = (eng.generate_stream([Request(0, np.arange(3), 2,

@@ -186,7 +186,11 @@ def test_port_imports_neither_jax_nor_the_reference():
            if m.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes")]
     assert not bad, bad
     probe = ("import sys, repro_torch.faas.simulator, repro_torch.core.backends,"
-             " repro_torch.kernels.bsr_spmm.ops, repro_torch.training.trainer;"
+             " repro_torch.kernels.bsr_spmm.ops, repro_torch.training.trainer,"
+             " repro_torch.launch.mesh, repro_torch.models.attention,"
+             " repro_torch.models.moe, repro_torch.serving.scheduler,"
+             " repro_torch.serving.router,"
+             " repro_torch.configs.sparse_dnn_graphchallenge;"
              " print(sorted({m.split('.')[0] for m in sys.modules}"
              " & {'jax', 'jaxlib', 'repro', 'ml_dtypes'}))")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))

@@ -42,10 +42,12 @@ from repro_torch.core.backends import (  # noqa: E402
 )
 from repro_torch.kernels.decode_attention import ops as decode_ops  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.models import attention, kvcache, transformer  # noqa: E402
 from repro_torch.models.registry import get_model  # noqa: E402
 from repro_torch.serving import router  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
+from repro_torch.serving.scheduler import Request  # noqa: E402
 
 ARCHS = ["internlm2-1.8b", "llama3.2-1b", "codeqwen1.5-7b", "minicpm-2b"]
 BLOCK_K = 8
@@ -108,8 +110,8 @@ def test_configs_match_the_reference():
         assert port.param_count() == ref.param_count()
     assert dataclasses.asdict(get_config("deepseek-moe-16b")) == \
         dataclasses.asdict(ref_get_config("deepseek-moe-16b"))
-    with pytest.raises(NotImplementedError, match="make_sparse_dnn"):
-        get_config("sparse-dnn-graphchallenge")
+    assert dataclasses.asdict(get_config("sparse-dnn-graphchallenge")) == \
+        dataclasses.asdict(ref_get_config("sparse-dnn-graphchallenge"))
     with pytest.raises(KeyError):
         get_config("gpt-9")
 
@@ -264,8 +266,21 @@ def test_registry_and_engine_options():
     eng = ServingEngine(cfg, device="cpu")
     assert eng.attn_backend.name == "torch-splitk"
     assert eng.params.embed.dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="item 9"):
-        eng.generate_stream([], mesh=object())
+    # the sequence-sharded stream: at the default block_k (64 here) a
+    # capacity of 128 splits into two shards; its tokens are the unsharded
+    # stream's, and a capacity that does not split raises
+    reqs = [Request(rid=i, prompt=np.arange(3 + i, dtype=np.int32),
+                    max_new_tokens=2) for i in range(2)]
+    mesh = make_mesh((2,), ("seq",), ["cpu", "cpu"])
+    plain = {r.rid: r.tokens for r in eng.generate_stream(
+        reqs, num_slots=2, max_request_len=128)}
+    sharded = eng.generate_stream(reqs, num_slots=2, max_request_len=128,
+                                  mesh=mesh, axis_name="seq")
+    assert sorted(r.rid for r in sharded) == [0, 1]
+    for r in sharded:
+        np.testing.assert_array_equal(r.tokens, plain[r.rid])
+    with pytest.raises(ValueError, match="sequence shards"):
+        eng.generate_stream(reqs, max_request_len=64, mesh=mesh)
     fabric = ServingEngine(cfg, device="cpu", engine="fabric", pipeline_P=2)
     assert (fabric.engine, fabric.pipeline_P, fabric.pipeline_channel) == (
         "fabric", 2, "queue")
