@@ -222,7 +222,22 @@ Run from the root of a checkout.  Phases, each printed as it ends:
    lines); and, after phase 3, ``sparse_layer_apply`` on the card (an
    offline ``BSRMatrix`` through the ``bsr_spmm`` kernel, one launch)
    against the kernel's plain version at 1e-5;
-17. one JSON line with each kernel's time, launches on its path, bound,
+17. the dry run (``dryrun_phase``; ``[dryrun]`` lines): the card's name
+   picks its data-sheet constants (``core/cost_model.accelerator_for``),
+   whose ``hbm_bytes`` must be within 1% of the card's total memory; the
+   reference's two gate cells, ``llama3.2-1b x train_4k`` and
+   ``internlm2-1.8b x decode_32k`` on the ``(16, 16)`` production mesh of
+   ``meta`` devices, must be ``ok``; two cells on a ``(1, 1)`` meta mesh
+   at the shapes the card ran: phase 14's training step (internlm2-1.8b,
+   8 x 512, bf16, AdamW, remat), whose argument bytes must equal the
+   bytes of the params, AdamW state and batch phase 14 held, summed from
+   those tensors, and phase 5's decode step (B 8, cache 640); their
+   roofline terms beside phase 14's measured step and phase 5's measured
+   ms a step, with the ratios (reported, not gated); the route
+   (``route_accelerator``) of the example's three archs at ``decode_32k``;
+   the card's allocated memory the same before and after (the dry run
+   allocates nothing); the phase within 30 s;
+18. one JSON line with each kernel's time, launches on its path, bound,
    plain-version time and one library call's time (the BSR kernels' at
    layer 2, and at each timed layer under ``by_layer``; the decode
    kernel's launches on the graphed stream, counted in the profiler's
@@ -312,11 +327,6 @@ LONG_BATCH, LONG_S = 32, 32768                  # one long-cache layer
 # logits may fall outside it, and 90% of the greedy next tokens must agree
 LOGITS_TOL = dict(rtol=3e-2, atol=3e-2)
 LOGITS_OUTSIDE_MAX, AGREE_MIN = 0.01, 0.9
-# (HBM bytes/s, fp32 FLOP/s outside the tensor cores, dense bf16 tensor-core
-# FLOP/s), NVIDIA data sheets
-PEAKS = {"H100 SXM": (3.35e12, 67e12, 989e12),
-         "H100 PCIe": (2.0e12, 51e12, 756e12),
-         "H100 NVL": (3.9e12, 60e12, 835e12)}
 # flash attention: the reference's test shapes (B, H, KV, S, D), the
 # serving model's prefill shape, one long shape
 FLASH_TEST_SHAPES = ((2, 4, 4, 256, 64), (2, 8, 2, 256, 64), (1, 4, 4, 512, 128))
@@ -422,6 +432,12 @@ TRAIN_UPDATE_TOL = dict(rtol=1e-6, atol=1e-6)
 TRAIN_BF16_LOSS_REL, TRAIN_BF16_GRAD_REL = 2.0 ** -8, 2e-2
 FIRST_LOSS_REL = 0.02
 FAMILY_STREAM = (6, 4, (32, 128), (4, 16))
+# the dry run (phase 17): the reference's gate cells on the production mesh,
+# the example's archs for the route, the tolerance of the constants' memory
+# against the card's, the phase's time limit (s)
+DRYRUN_CELLS = (("llama3.2-1b", "train_4k"), ("internlm2-1.8b", "decode_32k"))
+DRYRUN_ROUTE_ARCHS = ("internlm2-1.8b", "deepseek-moe-16b", "mamba2-370m")
+DRYRUN_HBM_REL, DRYRUN_MAX_S = 0.01, 30.0
 # builds of a kernel source with one piece of text replaced, each built
 # beside the others at the start: name -> (source, old, new).  The BSR
 # sweeps time a one-stage ring and a walk without the non-finite test; the
@@ -470,11 +486,13 @@ def card_line() -> str:
 
 
 def peaks_for(name: str):
-    if "H100" in name:
-        kind = next((k for k in ("H100 NVL", "H100 PCIe") if k.split()[1] in name),
-                    "H100 SXM")
-        return kind, PEAKS[kind]
-    raise ValueError(f"no data-sheet peaks for card {name!r}")
+    """``(kind, (HBM bytes/s, fp32 FLOP/s outside the tensor cores, dense
+    bf16 tensor-core FLOP/s))`` of the card, from the package's data-sheet
+    table (``core/cost_model.py::ACCELERATORS``)."""
+    from repro_torch.core.cost_model import accelerator_for
+
+    kind, c = accelerator_for(name)
+    return kind, (c.hbm_bandwidth, c.peak_fp32_flops, c.peak_bf16_flops)
 
 
 def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
@@ -1218,7 +1236,7 @@ def decode_phase(dev, peaks, card):
 def serve_phase(dev, card):
     """``ServingEngine`` at internlm2-1.8b's full width through the decode
     kernel, then against the plain backend.  Returns the decode kernel's
-    launches on the path."""
+    launches on the path and the measured decode ms a step."""
     from repro_torch.configs import get_config
     from repro_torch.models import transformer
     from repro_torch.serving.engine import ServingEngine
@@ -1358,7 +1376,7 @@ def serve_phase(dev, card):
     log(f"[serve] fp32 params, {NEW_FP32} new tokens: torch-splitk and "
         f"dense-ref tokens identical; last-step max |logits diff| {err32:.3e} "
         f"(tolerance 1e-4)")
-    return launches["decode_attention"]
+    return launches["decode_attention"], step * 1e3
 
 
 def device_rows(prof):
@@ -4001,6 +4019,7 @@ def timed_trainer(cls):
             self.step_ms, self.profile = [], None
 
             def step(*args):
+                self.held = args  # (params, opt_state, batch): phase 17
                 if len(self.step_ms) == self.profile_step:
                     torch.cuda.synchronize()
                     with profile(activities=[ProfilerActivity.CPU,
@@ -4132,7 +4151,7 @@ def train_bf16_check(dev, cut) -> None:
     torch.cuda.empty_cache()
 
 
-def train_phase(dev, peaks, card) -> None:
+def train_phase(dev, peaks, card) -> tuple:
     """Phase 14: internlm2-1.8b at full width through ``Trainer.fit``
     (AdamW, remat on): (a) bf16, full depth, ``TRAIN_FULL_STEPS`` steps of
     ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens, timed, profiled, peak memory;
@@ -4140,7 +4159,9 @@ def train_phase(dev, peaks, card) -> None:
     loss, every gradient leaf, and AdamW's update given the CPU's
     gradients, in bf16 the loss and every gradient leaf
     (:func:`train_bf16_check`); (c) restart at the cut in bf16 under
-    deterministic algorithms, bit for bit an uninterrupted run."""
+    deterministic algorithms, bit for bit an uninterrupted run.  Returns
+    the bytes (a)'s step held (params, AdamW state, batch; summed from
+    those tensors) and its median step ms."""
     import copy
     import dataclasses
 
@@ -4227,7 +4248,11 @@ def train_phase(dev, peaks, card) -> None:
             f"unprofiled {step_ms:.1f} ms step")
         for key, us, n in prof["top"]:
             log(f"  {us / 1e3:9.3f} ms  {n:6d} x  {key[:90]}")
-    del tr, hist
+    params, opt_state, batch = tr.held
+    held = held_bytes(params, opt_state, batch)
+    log(f"[train] held by the step: {held} bytes (params, AdamW's m, v and "
+        f"step, the batch {sorted(batch)})")
+    del tr, hist, params, opt_state, batch
     torch.cuda.empty_cache()
 
     # ---- (b) fp32 at a depth cut, the card against the CPU ----
@@ -4338,6 +4363,94 @@ def train_phase(dev, peaks, card) -> None:
         f"{free / 1e9:.0f} GB were free beside them)")
     del full, resumed
     torch.cuda.empty_cache()
+    return held, step_ms
+
+
+def held_bytes(params, opt_state, batch) -> int:
+    """Bytes of a training step's arguments, summed from the tensors: the
+    model's parameters, AdamW's ``m``, ``v`` and ``step``, the batch."""
+    n = sum(p.numel() * p.element_size() for p in params.parameters())
+    n += sum(p.numel() * p.element_size() for key in ("m", "v")
+             for leaf in opt_state[key].values() for p in leaf.parts)
+    n += opt_state["step"].numel() * opt_state["step"].element_size()
+    return n + sum(t.numel() * t.element_size() for t in batch.values())
+
+
+def dryrun_phase(card, train_held: int, train_ms: float, decode_ms: float
+                 ) -> None:
+    """Phase 17: the meta-device dry run (``launch/dryrun.py``) priced
+    with this card's constants: the reference's two gate cells on the
+    production mesh, phase 14's training step and phase 5's decode step
+    on a ``(1, 1)`` mesh beside their measured times, the route of the
+    example's archs; nothing allocated on the card."""
+    from repro_torch.configs import ShapeConfig, get_config, get_shape
+    from repro_torch.core.cost_model import accelerator_for
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh, make_production_mesh
+    from repro_torch.serving.router import route_accelerator
+
+    t0 = time.time()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    kind, consts = accelerator_for(torch.cuda.get_device_name(0))
+    total = torch.cuda.get_device_properties(0).total_memory
+    rel = abs(consts.hbm_bytes / total - 1)
+    check(rel <= DRYRUN_HBM_REL, f"the {kind}'s hbm_bytes {consts.hbm_bytes} "
+          f"vs the card's total memory {total}: {rel:.3%}")
+    log(f"[dryrun] constants of the {kind}: {consts.peak_bf16_flops / 1e12} "
+        f"TFLOP/s bf16, {consts.hbm_bandwidth / 1e12} TB/s HBM, "
+        f"{consts.link_bandwidth / 1e9} GB/s NVLink a direction, hbm_bytes "
+        f"{consts.hbm_bytes} ({rel:.3%} from the card's total memory {total})")
+
+    def terms(r) -> str:
+        return (f"compute {r.compute_term_s * 1e3:.3f} ms, memory "
+                f"{r.memory_term_s * 1e3:.3f} ms, collective "
+                f"{r.collective_term_s * 1e3:.3f} ms -> {r.bottleneck}; "
+                f"FLOPs/dev {r.flops_per_device:.4e} (products "
+                f"{r.product_flops_per_device:.4e}), args/dev "
+                f"{r.argument_bytes:.0f} B, temp/dev ~{r.temp_bytes:.4e} B, "
+                f"collectives/dev {r.collective_bytes}; the meta step "
+                f"{r.compile_s:.1f} s")
+
+    prod = make_production_mesh()
+    for arch, shape in DRYRUN_CELLS:
+        r = dryrun.run_cell(arch, shape, mesh=prod, verbose=False,
+                            constants=consts)
+        check(r.status == "ok", f"dry run {arch} x {shape}: {r.note}")
+        log(f"[dryrun] {arch} x {shape} on the 16x16 meta mesh: {terms(r)}")
+
+    one = make_mesh((1, 1), ("data", "model"), ["meta"])
+    train = ShapeConfig("train_card", seq_len=TRAIN_SEQ,
+                        global_batch=TRAIN_BATCH, kind="train")
+    r = dryrun.run_cell(ARCH, train, mesh=one, verbose=False, constants=consts)
+    check(r.status == "ok", f"dry run of phase 14's step: {r.note}")
+    check(r.argument_bytes == train_held, f"dry run argument bytes "
+          f"{r.argument_bytes} vs {train_held} held by phase 14's step")
+    log(f"[dryrun] {ARCH} training step {TRAIN_BATCH} x {TRAIN_SEQ} on 1x1: "
+        f"argument bytes {r.argument_bytes:.0f} == phase 14's held bytes; "
+        f"{terms(r)}; measured {train_ms:.1f} ms a step (phase 14): compute "
+        f"term {r.compute_term_s * 1e3 / train_ms:.1%} of it, memory term "
+        f"{r.memory_term_s * 1e3 / train_ms:.1%}, on {card}")
+    dec = ShapeConfig("decode_card", seq_len=DECODE_SHAPE[3],
+                      global_batch=SERVE_BATCH, kind="decode")
+    r = dryrun.run_cell(ARCH, dec, mesh=one, verbose=False, constants=consts)
+    check(r.status == "ok", f"dry run of phase 5's decode step: {r.note}")
+    log(f"[dryrun] {ARCH} decode step B {SERVE_BATCH}, cache "
+        f"{DECODE_SHAPE[3]} on 1x1: {terms(r)}; measured {decode_ms:.3f} ms "
+        f"a step (phase 5): memory term {r.memory_term_s * 1e3 / decode_ms:.1%}"
+        f" of it, compute term {r.compute_term_s * 1e3 / decode_ms:.1%}, on "
+        f"{card}")
+    for arch in DRYRUN_ROUTE_ARCHS:
+        route = route_accelerator(get_config(arch), get_shape("decode_32k"),
+                                  constants=consts)
+        log(f"[dryrun] route {arch} x decode_32k: {route.chips} {kind} "
+            f"cards ({route.reason})")
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    check(after == before, f"the dry run allocated on the card: {before} -> "
+          f"{after} bytes")
+    wall = time.time() - t0
+    check(wall <= DRYRUN_MAX_S, f"phase 17 took {wall:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -4455,7 +4568,7 @@ def main() -> int:
     log(f"[sharded] phase {time.time() - t:.1f} s")
     timing["decode_attention"], errs["decode_attention"] = decode_phase(
         dev, peaks, card)
-    launches["decode_attention"] = serve_phase(dev, card)
+    launches["decode_attention"], decode_ms = serve_phase(dev, card)
     stream_launches, row_err, stream = cb_phase(dev, peaks, card)
     timing["decode_attention"].update(stream_launches=stream_launches,
                                       stream=stream)
@@ -4488,10 +4601,14 @@ def main() -> int:
         errs["decode_attention"] = max(errs["decode_attention"], err)
 
     t = time.time()
-    train_phase(dev, peaks, card)
+    train_held, train_ms = train_phase(dev, peaks, card)
     log(f"[train] phase {time.time() - t:.1f} s")
 
-    # ---- 17. kernels line ------------------------------------------------
+    t = time.time()
+    dryrun_phase(card, train_held, train_ms, decode_ms)
+    log(f"[dryrun] phase 17 {time.time() - t:.1f} s")
+
+    # ---- 18. kernels line ------------------------------------------------
     kernels = [dict(name=k, route="cuda", source=SOURCES[k],
                     replaces=REPLACES[k], launches=launches[k],
                     max_abs_err=errs[k], **timing[k])

@@ -37,6 +37,12 @@ __all__ = [
     "warm_pool_cost",
     "activation_hop_cost",
     "recommend_configuration",
+    "AcceleratorCostConstants",
+    "H100_SXM",
+    "H100_PCIE",
+    "H100_NVL",
+    "ACCELERATORS",
+    "accelerator_for",
 ]
 
 
@@ -277,3 +283,50 @@ def recommend_configuration(
         raise ValueError("no feasible configuration (model too large for FaaS fleet)")
     return best[1], best[2], table
 
+
+
+# ---------------------------------------------------------------------------
+# accelerator roofline constants (the dry run's and the router's)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class AcceleratorCostConstants:
+    """One card's roofline constants, from NVIDIA's data sheets:
+    ``peak_bf16_flops`` (dense bf16 tensor-core FLOP/s), ``hbm_bandwidth``
+    (bytes/s), ``link_bandwidth`` (NVLink bytes/s a GPU, one direction),
+    ``hbm_bytes`` (the memory the card reports) and ``peak_fp32_flops``
+    (fp32 FLOP/s outside the tensor cores)."""
+
+    peak_bf16_flops: float
+    hbm_bandwidth: float
+    link_bandwidth: float
+    hbm_bytes: float
+    peak_fp32_flops: float = 0.0
+
+
+# NVLink 4: 900 GB/s a GPU both ways on the SXM part, 600 GB/s over the
+# PCIe and NVL parts' bridges.  Memory: what an H100 80GB HBM3 (SXM)
+# reports (``torch.cuda.get_device_properties(0).total_memory``); the PCIe
+# and NVL parts' are their data sheets' 80 GB and 94 GB, not read off a card
+H100_SXM = AcceleratorCostConstants(
+    peak_bf16_flops=989e12, hbm_bandwidth=3.35e12, link_bandwidth=450e9,
+    hbm_bytes=85017493504, peak_fp32_flops=67e12)
+H100_PCIE = AcceleratorCostConstants(
+    peak_bf16_flops=756e12, hbm_bandwidth=2.0e12, link_bandwidth=300e9,
+    hbm_bytes=80e9, peak_fp32_flops=51e12)
+H100_NVL = AcceleratorCostConstants(
+    peak_bf16_flops=835e12, hbm_bandwidth=3.9e12, link_bandwidth=300e9,
+    hbm_bytes=94e9, peak_fp32_flops=60e12)
+ACCELERATORS = {"H100 SXM": H100_SXM, "H100 PCIe": H100_PCIE,
+                "H100 NVL": H100_NVL}
+
+
+def accelerator_for(name: str):
+    """``(kind, constants)`` for a card's name as CUDA reports it
+    (``NVIDIA H100 80GB HBM3`` is the SXM part)."""
+    if "H100" in name:
+        kind = next((k for k in ("H100 NVL", "H100 PCIe")
+                     if k.split()[1] in name), "H100 SXM")
+        return kind, ACCELERATORS[kind]
+    raise ValueError(f"no data-sheet constants for card {name!r}")

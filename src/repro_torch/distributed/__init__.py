@@ -1,1 +1,2 @@
-"""Distributed-training pieces: gradient compression."""
+"""Distributed pieces: gradient compression, placement rules and the
+costing of a placed step."""

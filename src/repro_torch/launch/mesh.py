@@ -17,6 +17,11 @@ the kernels' plain versions.
 * :func:`make_worker_mesh`: the sharded fleet backend's worker axis, a
   list of devices: shard ``d`` of a ``p_pad``-worker panel (rows ``d *
   p_pad / D`` up to the next shard) lives and runs on ``mesh[d]``.
+* :func:`make_production_mesh`: the reference's production layout, a
+  ``(16, 16)`` ``("data", "model")`` mesh or a ``(2, 16, 16)`` ``("pod",
+  "data", "model")`` one, over the ``meta`` device: the dry run
+  (``launch/dryrun.py``) places and costs a step on it and allocates
+  nothing.
 """
 
 from __future__ import annotations
@@ -27,8 +32,12 @@ from typing import List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-__all__ = ["Mesh", "make_mesh", "make_worker_mesh", "MeshAxes", "mesh_axes_of",
-           "resolve_device"]
+__all__ = ["Mesh", "make_mesh", "make_production_mesh", "make_worker_mesh",
+           "MeshAxes", "mesh_axes_of", "resolve_device"]
+
+# the device kinds a mesh may name: the card, the CPU, and ``meta`` (shapes
+# without storage, for the dry run)
+MESH_DEVICE_TYPES = ("cuda", "cpu", "meta")
 
 
 def resolve_device(device) -> torch.device:
@@ -121,12 +130,21 @@ def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...],
             raise ValueError(f"a mesh of shape {shape} takes {n} devices, "
                              f"got {len(devs)}")
         for d in devs:
-            if d.type not in ("cuda", "cpu"):
-                raise ValueError(f"a mesh is over cuda or cpu, not {d}")
+            if d.type not in MESH_DEVICE_TYPES:
+                raise ValueError(f"a mesh is over cuda, cpu or meta, not {d}")
     arr = np.empty(n, dtype=object)
     for i, d in enumerate(devs):
         arr[i] = d
     return Mesh(arr.reshape(shape), axes)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The reference's production mesh over ``meta``: ``(16, 16)``
+    ``("data", "model")``, or ``(2, 16, 16)`` ``("pod", "data", "model")``
+    with ``multi_pod``."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, [torch.device("meta")] * math.prod(shape))
 
 
 def make_worker_mesh(n_devices: Optional[int] = None,

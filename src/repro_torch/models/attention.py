@@ -36,6 +36,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 ACC = torch.float32
 NEG_INF = -1e30
@@ -134,9 +135,8 @@ def chunked_causal_attention(
     scale = _scale(D)
     kv_valid = (torch.arange(n_k * kv_chunk, device=dev) < Sk).reshape(n_k, kv_chunk)
 
-    outs = []
-    for qi in range(n_q):
-        q_blk = qs[qi].to(ACC)                       # [B, KV, G, q_chunk, D]
+    def q_body(qi: int, q_blk: torch.Tensor) -> torch.Tensor:
+        q_blk = q_blk.to(ACC)                        # [B, KV, G, q_chunk, D]
         m = torch.full((B, KV, G, q_chunk), NEG_INF, dtype=ACC, device=dev)
         l = torch.zeros((B, KV, G, q_chunk), dtype=ACC, device=dev)
         acc = torch.zeros((B, KV, G, q_chunk, D), dtype=ACC, device=dev)
@@ -155,7 +155,21 @@ def chunked_causal_attention(
             l = l * corr + p.sum(dim=-1)
             acc = acc * corr[..., None] + _pv(p, vs[kj], "bkgqs,bksd->bkgqd")
             m = m_new
-        outs.append(acc / l.clamp_min(1e-30)[..., None])
+        return acc / l.clamp_min(1e-30)[..., None]
+
+    # Checkpoint per q-chunk, as the reference does: autograd through the
+    # kv loop would keep every chunk's probability block, O(Sq·Sk)
+    # residuals; recomputing a q-chunk row in the backward pass bounds them
+    # to one row.
+    records = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    outs = []
+    for qi in range(n_q):
+        if records:
+            outs.append(torch.utils.checkpoint.checkpoint(
+                q_body, qi, qs[qi], use_reentrant=False))
+        else:
+            outs.append(q_body(qi, qs[qi]))
     out = torch.stack(outs)                          # [n_q, B, KV, G, q_chunk, D]
     out = out.permute(1, 0, 4, 2, 3, 5).reshape(B, n_q * q_chunk, H, D)
     return out[:, :Sq].to(q.dtype)

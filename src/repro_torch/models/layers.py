@@ -65,10 +65,11 @@ def set_tp_psum_dtype(dtype) -> None:
 
 
 def constrain(x: torch.Tensor, *axes) -> torch.Tensor:
-    """The reference's sharding hint over symbolic axes (``"dp"``,
-    ``"model"``, ``None``).  A hint places a value and never changes it,
-    and the port gives placements no meaning yet, so ``x`` comes back
-    unchanged."""
+    """The reference's sharding hint: symbolic axes (``"dp"``,
+    ``"model"``, ``None``) or one ``distributed.sharding.Placement``.  A
+    hint places a value and never changes it; the port moves no tensor onto
+    a placement (the dry run reads placements to cost a step), so ``x``
+    comes back unchanged."""
     return x
 
 

@@ -29,7 +29,7 @@ from repro_torch.core.backends import cache_layout_for, get_backend
 from repro_torch.models import encdec, hybrid, mamba2, moe, transformer
 
 __all__ = ["FRONTEND_INPUTS", "ModelApi", "StageModel", "get_model",
-           "get_stage_model", "input_specs", "cache_specs"]
+           "get_stage_model", "input_specs", "cache_specs", "abstract_params"]
 
 # The batch key of each family's stub-frontend input, ``[B, F, d_model]``
 # with F = ``cfg.frontend_tokens``: image embeddings prepended to the
@@ -203,6 +203,18 @@ def get_stage_model(cfg: ModelConfig, attn_backend=None) -> StageModel:
 # ---------------------------------------------------------------------------
 # input specs: concrete tensors or meta tensors per (arch x shape)
 # ---------------------------------------------------------------------------
+
+_MODULES = {"dense": transformer.Transformer, "vlm": transformer.Transformer,
+            "moe": moe.Moe, "ssm": mamba2.Mamba2, "hybrid": hybrid.Hybrid,
+            "encdec": encdec.EncDec}
+
+
+def abstract_params(cfg: ModelConfig) -> nn.Module:
+    """The family's parameter module at ``cfg``'s width on the ``meta``
+    device (shapes and dtypes, no storage): the counterpart of the
+    reference's ``jax.eval_shape(model.init, key)``."""
+    return _MODULES[cfg.family](cfg, device="meta")
+
 
 
 def _maker(abstract: bool, seed: int, cfg: ModelConfig, device):

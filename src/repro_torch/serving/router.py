@@ -13,17 +13,17 @@ from __future__ import annotations
 import dataclasses
 from typing import Literal, Optional
 
-from repro_torch.configs.base import ModelConfig
-from repro_torch.core.cost_model import recommend_configuration
+from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.core.cost_model import H100_SXM, recommend_configuration
 from repro_torch.core.backends import (
     KVCacheLayout,
     attention_backend_for,
     cache_layout_for,
 )
 
-__all__ = ["DecodePlan", "ServingPlan", "ServerlessRoute",
+__all__ = ["DecodePlan", "ServingPlan", "ServerlessRoute", "AcceleratorRoute",
            "route_attention_backend", "route_decode_plan",
-           "route_serving_plan", "route_serverless"]
+           "route_serving_plan", "route_serverless", "route_accelerator"]
 
 Channel = Literal["serial", "queue", "object"]
 
@@ -142,3 +142,42 @@ def route_serving_plan(cfg: ModelConfig, max_request_len: int,
     blocks = RESERVED_BLOCKS + num_slots * layout.blocks_for(cap)
     return ServingPlan(decode=decode, num_slots=num_slots,
                        slot_capacity=cap, num_blocks=blocks)
+
+
+@dataclasses.dataclass
+class AcceleratorRoute:
+    chips: int
+    reason: str
+
+
+def route_accelerator(cfg: ModelConfig, shape: ShapeConfig,
+                      bytes_per_param: float = 2.0,
+                      target_step_latency_s: float = 0.1,
+                      constants=H100_SXM) -> AcceleratorRoute:
+    """The fewest cards, of 1, 2, 4, ... 512, whose memory holds the
+    weights and the decode cache within 85% and whose bf16 peak runs a
+    step's ``2·N_active`` FLOPs a token within ``target_step_latency_s``;
+    ``constants`` is any object with ``hbm_bytes`` and ``peak_bf16_flops``."""
+    params_b = cfg.param_count() * bytes_per_param
+    cache_b = 0.0
+    if shape.kind == "decode":
+        cache_b = (2 * (cfg.n_layers + cfg.n_encoder_layers)
+                   * shape.global_batch * shape.seq_len
+                   * cfg.eff_kv_heads * cfg.d_head * 2.0)
+        if cfg.family == "ssm":
+            cache_b = (cfg.n_layers * shape.global_batch * cfg.ssm_heads
+                       * cfg.ssm_head_dim * cfg.ssm_state * 4.0)
+    flops = 2.0 * cfg.active_param_count() * max(1, shape.tokens
+                                                 if shape.kind != "decode"
+                                                 else shape.global_batch)
+    chips = 1
+    for candidate in (1, 2, 4, 8, 16, 32, 64, 128, 256, 512):
+        chips = candidate
+        fits = (params_b + cache_b) / candidate <= 0.85 * constants.hbm_bytes
+        fast = flops / (candidate * constants.peak_bf16_flops) <= target_step_latency_s
+        if fits and fast:
+            return AcceleratorRoute(
+                chips=candidate,
+                reason=f"fits at {candidate} chips "
+                       f"({(params_b + cache_b) / candidate / 1e9:.1f}GB/chip)")
+    return AcceleratorRoute(chips=chips, reason="requires the full 512-chip mesh")

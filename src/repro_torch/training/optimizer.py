@@ -28,6 +28,7 @@ from typing import Any, Callable, Dict, Mapping, Tuple
 
 import torch
 
+from repro_torch.distributed.sharding import P
 from repro_torch.models.param_tree import Path, RefLeaf
 
 __all__ = ["cosine_schedule", "wsd_schedule", "get_schedule", "global_norm",
@@ -168,6 +169,12 @@ class AdamW:
         state["step"] = step
         return params, state, {"grad_norm": gnorm, "lr": lr}
 
+    def state_pspecs(self, param_specs: Mapping[Path, Any],
+                     params: Mapping[Path, RefLeaf]) -> Dict[str, Any]:
+        """The state's partition specs (``distributed/sharding.py``): each
+        moment placed as its parameter; the step replicated."""
+        return {"m": dict(param_specs), "v": dict(param_specs), "step": P()}
+
 
 # ---------------------------------------------------------------------------
 # Adafactor (factored second moments, no momentum)
@@ -234,6 +241,30 @@ class Adafactor:
                 vc.copy_(vc2)
         state["step"] = step
         return params, state, {"lr": lr}
+
+    def state_pspecs(self, param_specs: Mapping[Path, Any],
+                     params: Mapping[Path, RefLeaf]) -> Dict[str, Any]:
+        """The state's partition specs: ``vr`` drops the parameter spec's
+        last dim and ``vc`` its second to last (a vector's ``vr`` is placed
+        as the vector, its empty ``vc`` replicated); the step replicated."""
+        def pad(spec, ndim):
+            t = tuple(spec)
+            return (None,) * (ndim - len(t)) + t
+
+        def vr_spec(spec, leaf):
+            nd = len(leaf.shape)
+            return P(*pad(spec, nd)[:-1]) if nd >= 2 else P(*pad(spec, nd))
+
+        def vc_spec(spec, leaf):
+            nd = len(leaf.shape)
+            if nd >= 2:
+                s = pad(spec, nd)
+                return P(*(s[:-2] + (s[-1],)))
+            return P()
+
+        return {"vr": {k: vr_spec(s, params[k]) for k, s in param_specs.items()},
+                "vc": {k: vc_spec(s, params[k]) for k, s in param_specs.items()},
+                "step": P()}
 
 
 def get_optimizer(cfg, total_steps: int = 10_000, base_lr: float = 3e-4,

@@ -190,6 +190,8 @@ def test_port_imports_neither_jax_nor_the_reference():
              " repro_torch.launch.mesh, repro_torch.models.attention,"
              " repro_torch.models.moe, repro_torch.serving.scheduler,"
              " repro_torch.serving.router,"
+             " repro_torch.distributed.sharding, repro_torch.distributed.costing,"
+             " repro_torch.launch.dryrun,"
              " repro_torch.configs.sparse_dnn_graphchallenge;"
              " print(sorted({m.split('.')[0] for m in sys.modules}"
              " & {'jax', 'jaxlib', 'repro', 'ml_dtypes'}))")

@@ -82,8 +82,10 @@ def test_mesh_entries_order_and_sub_meshes():
         make_mesh((2, 3), ("data",), devs)
     with pytest.raises(ValueError, match="repeat"):
         make_mesh((2, 3), ("data", "data"), devs)
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        make_mesh((1,), ("seq",), ["meta"])
+    # the dry run's meshes are of the meta device; no other kind is taken
+    assert make_mesh((2,), ("seq",), ["meta"] * 2).flat() == [torch.device("meta")] * 2
+    with pytest.raises(ValueError, match="cuda, cpu or meta"):
+        make_mesh((1,), ("seq",), ["mps"])
 
 
 def test_meshes_default_to_the_card(monkeypatch):
