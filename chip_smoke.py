@@ -237,7 +237,21 @@ Run from the root of a checkout.  Phases, each printed as it ends:
    (``route_accelerator``) of the example's three archs at ``decode_32k``;
    the card's allocated memory the same before and after (the dry run
    allocates nothing); the phase within 30 s;
-18. one JSON line with each kernel's time, launches on its path, bound,
+18. real tensors on placements (``placement_phase``; ``[placement]``
+   lines), on phase 14 (c)'s checkpoint of the bf16 2-layer cut with
+   AdamW's state: ``checkpoint.restore(..., shardings=)`` onto the
+   reference's ``(2, 4)`` ``("data", "model")`` mesh over ``[cuda:0] * 8``
+   (``param_pspecs``, FSDP off, and ``AdamW.state_pspecs``), every shard
+   bit for bit the same mesh position's of the restore onto ``["cpu"] *
+   8``, ``gather`` of every leaf bit for bit the unsharded restore, at
+   least one leaf split (seconds, bytes copied to the card, peak memory
+   logged); ``device_batch(shardings=)`` of the 8 x 512 batch on that
+   mesh, each shard its slice of ``batch(step)``; ``compressed_psum`` over
+   ``[cuda:0] * 4`` of the cut's fp32 gradient leaves from four batches,
+   bit for bit the CPU's on the same shards and within ``8 x scale`` of
+   the fp32 sum (ms a call on the largest leaf, int8 and fp32 wire
+   bytes); the phase within 60 s;
+19. one JSON line with each kernel's time, launches on its path, bound,
    plain-version time and one library call's time (the BSR kernels' at
    layer 2, and at each timed layer under ``by_layer``; the decode
    kernel's launches on the graphed stream, counted in the profiler's
@@ -438,6 +452,11 @@ FAMILY_STREAM = (6, 4, (32, 128), (4, 16))
 DRYRUN_CELLS = (("llama3.2-1b", "train_4k"), ("internlm2-1.8b", "decode_32k"))
 DRYRUN_ROUTE_ARCHS = ("internlm2-1.8b", "deepseek-moe-16b", "mamba2-370m")
 DRYRUN_HBM_REL, DRYRUN_MAX_S = 0.01, 30.0
+# real tensors on placements (phase 18): the reference's mesh, over
+# [cuda:0] * 8 and ["cpu"] * 8; the batch's step; the data-parallel shards
+# of compressed_psum (four batches' gradients); the phase's time limit (s)
+PLACE_MESH = ((2, 4), ("data", "model"))
+PLACE_BATCH_STEP, PSUM_SHARDS, PLACE_MAX_S = 7, 4, 60.0
 # builds of a kernel source with one piece of text replaced, each built
 # beside the others at the start: name -> (source, old, new).  The BSR
 # sweeps time a one-stage ring and a walk without the non-finite test; the
@@ -1145,6 +1164,18 @@ def decode_phase(dev, peaks, card):
     log(f"  decode cache lengths {lens}")
     errs = [held(f"main B{B} H{H} KV{KV} S{S} D{D} {dtype}", *main[dtype], lens)
             for dtype in (torch.bfloat16, torch.float32)]
+    # the launch plan is keyed by capacity, not length: a decode loop over a
+    # growing cache adds no plan after its first step
+    q, k, v = main[torch.bfloat16]
+    ops.decode_mha(q, k, v, torch.tensor([1], dtype=torch.int32, device=dev))
+    size = ops.decode_mha_cache_size()
+    for L in range(2, 12):
+        ops.decode_mha(q, k, v, torch.tensor([L], dtype=torch.int32, device=dev))
+    check(ops.decode_mha_cache_size() == size, f"decode_mha_cache_size grew "
+          f"from {size} to {ops.decode_mha_cache_size()} over ten cache lengths")
+    log(f"[decode] decode_mha_cache_size {size} after a launch at cache_len 1 "
+        f"and {ops.decode_mha_cache_size()} after ten more at cache lengths "
+        f"2-11 (B{B} H{H} KV{KV} S{S} D{D} bf16) on {card}")
     for H_, KV_ in ((8, 8), (16, 4)):  # G = 1 and G = 4, D 64
         q, k, v = operands(4, H_, KV_, 300, 64, torch.bfloat16)
         errs.append(held(f"G{H_ // KV_} D64 bf16", q, k, v, [0, 1, 129, 300]))
@@ -4151,7 +4182,7 @@ def train_bf16_check(dev, cut) -> None:
     torch.cuda.empty_cache()
 
 
-def train_phase(dev, peaks, card) -> tuple:
+def train_phase(dev, peaks, card, ckpt_dir: str) -> tuple:
     """Phase 14: internlm2-1.8b at full width through ``Trainer.fit``
     (AdamW, remat on): (a) bf16, full depth, ``TRAIN_FULL_STEPS`` steps of
     ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens, timed, profiled, peak memory;
@@ -4159,7 +4190,8 @@ def train_phase(dev, peaks, card) -> tuple:
     loss, every gradient leaf, and AdamW's update given the CPU's
     gradients, in bf16 the loss and every gradient leaf
     (:func:`train_bf16_check`); (c) restart at the cut in bf16 under
-    deterministic algorithms, bit for bit an uninterrupted run.  Returns
+    deterministic algorithms, bit for bit an uninterrupted run, its
+    checkpoints written to ``ckpt_dir`` (phase 18 restores them).  Returns
     the bytes (a)'s step held (params, AdamW state, batch; summed from
     those tensors) and its median step ms."""
     import copy
@@ -4318,20 +4350,19 @@ def train_phase(dev, peaks, card) -> tuple:
                             global_batch=TRAIN_BATCH, kind="train")
     torch.use_deterministic_algorithms(True)
     try:
-        with tempfile.TemporaryDirectory() as tmp:
-            def trainer(**kw):
-                return Trainer(cut, cut_shape, TrainerConfig(
-                    total_steps=TRAIN_STEPS, ckpt_every=2, **kw), seed=SEED,
-                    device=dev)
-            full = trainer()
-            h_full = full.fit()
-            t = time.time()
-            trainer(ckpt_dir=tmp, stop_after=2).fit()
-            resumed = trainer(ckpt_dir=tmp)
-            h_res = resumed.fit(resume=True)
-            t_ckpt = time.time() - t
-            on_disk = sum(f.stat().st_size for f in Path(tmp).rglob("*.npy"))
-            free = shutil.disk_usage(tmp).free
+        def trainer(**kw):
+            return Trainer(cut, cut_shape, TrainerConfig(
+                total_steps=TRAIN_STEPS, ckpt_every=2, **kw), seed=SEED,
+                device=dev)
+        full = trainer()
+        h_full = full.fit()
+        t = time.time()
+        trainer(ckpt_dir=ckpt_dir, stop_after=2).fit()
+        resumed = trainer(ckpt_dir=ckpt_dir)
+        h_res = resumed.fit(resume=True)
+        t_ckpt = time.time() - t
+        on_disk = sum(f.stat().st_size for f in Path(ckpt_dir).rglob("*.npy"))
+        free = shutil.disk_usage(ckpt_dir).free
     except RuntimeError as e:
         log(f"[train] restart check: an op raised under deterministic "
             f"algorithms: {str(e).splitlines()[0]}")
@@ -4359,7 +4390,7 @@ def train_phase(dev, peaks, card) -> tuple:
         f"AdamW's m, v and step ({TRAIN_STEPS}) and losses {h_res['loss']} "
         f"bit for bit; the crashed "
         f"and resumed runs with their checkpoints {t_ckpt:.1f} s "
-        f"({on_disk / 1e9:.2f} GB of .npy in two steps, removed after; "
+        f"({on_disk / 1e9:.2f} GB of .npy in two steps, kept for phase 18; "
         f"{free / 1e9:.0f} GB were free beside them)")
     del full, resumed
     torch.cuda.empty_cache()
@@ -4451,6 +4482,196 @@ def dryrun_phase(card, train_held: int, train_ms: float, decode_ms: float
           f"{after} bytes")
     wall = time.time() - t0
     check(wall <= DRYRUN_MAX_S, f"phase 17 took {wall:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# 18. real tensors on placements
+# ---------------------------------------------------------------------------
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal dtypes, shapes and bits (-0.0 is not 0.0, a NaN equals its
+    own bits)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        as_int = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+        a, b = (t.view(as_int[t.element_size()]) for t in (a, b))
+    return torch.equal(a, b.to(a.device))
+
+
+def placement_phase(dev, card, ckpt_dir: str) -> None:
+    """Phase 18: phase 14 (c)'s checkpoint restored onto the reference's
+    ``(2, 4)`` mesh of the card and of the CPU, a sharded batch, and
+    ``compressed_psum`` over ``[cuda:0] * PSUM_SHARDS`` (the module
+    docstring's item 18)."""
+    import dataclasses
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.data.pipeline import PipelineSpec
+    from repro_torch.distributed.compression import (Int8Compressor,
+                                                     compressed_psum)
+    from repro_torch.distributed.sharding import (batch_pspecs, gather,
+                                                  param_pspecs, placements)
+    from repro_torch.launch.mesh import MeshAxes, make_mesh
+    from repro_torch.models.param_tree import RefLeaf, flatten, nest
+    from repro_torch.models.registry import abstract_params, get_model
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training.optimizer import get_optimizer
+    from repro_torch.training.train_state import value_and_grad
+
+    t0 = time.time()
+    cut = dataclasses.replace(get_config(ARCH), n_layers=TRAIN_CUT)
+    api = get_model(cut, attn_backend="dense-ref")
+    leaves = api.ref_leaves(abstract_params(cut))     # on meta
+    opt = get_optimizer(cut)
+    state = opt.init(leaves)
+    like = {"params": nest(leaves),
+            "opt": {k: nest(v) if isinstance(v, dict) else v
+                    for k, v in state.items()}}
+
+    def shardings(mesh):
+        specs = param_pspecs(cut, leaves, MeshAxes(mesh))
+        return {"params": placements(mesh, specs),
+                "opt": placements(mesh, opt.state_pspecs(specs, leaves))}
+
+    def on_cpu(leaf):
+        if isinstance(leaf, RefLeaf):
+            return RefLeaf(leaf.lead, [torch.empty_like(p, device="cpu")
+                                       for p in leaf.parts])
+        return torch.empty_like(leaf, device="cpu")
+
+    step = ckpt.latest_steps(ckpt_dir)[-1]
+    step_bytes = sum(f.stat().st_size for f in
+                     (Path(ckpt_dir) / f"step_{step:08d}").glob("*.npy"))
+
+    # ---- (a) the elastic restore ----
+    mesh_dev = make_mesh(*PLACE_MESH, [dev] * 8)
+    mesh_cpu = make_mesh(*PLACE_MESH, ["cpu"] * 8)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t = time.time()
+    placed, got_step = ckpt.restore(ckpt_dir, like, shardings=shardings(mesh_dev))
+    torch.cuda.synchronize()
+    restore_s = time.time() - t
+    peak = torch.cuda.max_memory_allocated() - base
+    t = time.time()
+    placed_cpu, _ = ckpt.restore(ckpt_dir, like, shardings=shardings(mesh_cpu))
+    cpu_s = time.time() - t
+    t = time.time()
+    whole, _ = ckpt.restore(
+        ckpt_dir, nest({p: on_cpu(x) for p, x in flatten(like).items()}))
+    whole_s = time.time() - t
+    check(got_step == step, f"restored step {got_step}, latest {step}")
+    flat, flat_cpu, flat_whole = flatten(placed), flatten(placed_cpu), \
+        flatten(whole)
+    copied, n_split = {}, 0
+    for path, sharded in flat.items():
+        twin = flat_cpu[path]
+        check(len(sharded.shards) == len(twin.shards) == 8,
+              f"{path}: {len(sharded.shards)} shards")
+        back = {}   # each card copy brought to the host once
+        for n, (a, b, d) in enumerate(zip(sharded.shards, twin.shards,
+                                          mesh_dev.flat())):
+            check(a.data.device == d and a.data.is_contiguous(),
+                  f"{path} shard {n} on {a.data.device}")
+            check(a.index == b.index, f"{path} shard {n}: index {a.index} vs "
+                  f"the CPU's {b.index}")
+            ptr = a.data.data_ptr()
+            if ptr not in back:
+                back[ptr] = a.data.cpu()
+                copied[ptr] = a.data.numel() * a.data.element_size()
+            check(same_bits(b.data, back[ptr]),
+                  f"{path} shard {n} differs from the CPU mesh's")
+        want = flat_whole[path]
+        want = want.stacked() if isinstance(want, RefLeaf) else want
+        check(same_bits(gather(sharded, dev), want.to(dev)),
+              f"gather of {path} differs from the unsharded restore")
+        n_split += sharded.blocks > 1
+    check(n_split > 0, "no leaf was split")
+    log(f"[placement] {ARCH} {TRAIN_CUT}-layer cut, bf16 params with AdamW's "
+        f"m, v and step: checkpoint step {step} ({step_bytes} bytes of .npy) "
+        f"restored onto a {PLACE_MESH[0]} {PLACE_MESH[1]} mesh of "
+        f"[{mesh_dev.flat()[0]}] x 8 in {restore_s:.2f} s: "
+        f"{sum(copied.values())} bytes copied to the card (each block once; "
+        f"a replica on the same device shares its copy), peak device memory "
+        f"{peak} bytes above the {base} before; onto the CPU mesh "
+        f"{cpu_s:.2f} s, unsharded {whole_s:.2f} s; {len(flat)} leaves, "
+        f"{n_split} split more than one way; every card shard bit for bit "
+        f"the CPU mesh's at the same position, every gather bit for bit the "
+        f"unsharded restore, on {card}")
+    del placed, placed_cpu, whole, flat, flat_cpu, flat_whole
+    torch.cuda.empty_cache()
+
+    # ---- (b) batches ----
+    shape = ShapeConfig("train", seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                        kind="train")
+    spec = PipelineSpec(cut, shape, seed=SEED)
+    host = spec.batch(PLACE_BATCH_STEP)
+    batch_sh = placements(mesh_dev, batch_pspecs(cut, shape, host,
+                                                 MeshAxes(mesh_dev)))
+    t = time.time()
+    batch = spec.device_batch(PLACE_BATCH_STEP, device=dev, shardings=batch_sh)
+    torch.cuda.synchronize()
+    batch_ms = (time.time() - t) * 1e3
+    for key, sharded in batch.items():
+        for n, (shard, d) in enumerate(zip(sharded.shards, mesh_dev.flat())):
+            check(shard.data.device == d and np.array_equal(
+                shard.data.cpu().numpy(), host[key][shard.index]),
+                f"batch {key} shard {n} is not its slice of batch(step)")
+    log(f"[placement] device_batch({PLACE_BATCH_STEP}, shardings=) of "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} on the {PLACE_MESH[0]} mesh: specs "
+        f"{ {k: tuple(p.spec) for k, p in batch_sh.items()} }, every shard "
+        f"its slice of batch({PLACE_BATCH_STEP}); {batch_ms:.2f} ms host wall "
+        f"on {card}")
+    del batch
+
+    # ---- (c) compressed_psum ----
+    B, S = TRAIN_CPU
+    pipe = PipelineSpec(cut, ShapeConfig("train", seq_len=S, global_batch=B,
+                                         kind="train"), seed=SEED)
+    model = api.init(torch.Generator(device=dev).manual_seed(SEED)).float()
+    model.requires_grad_(True)
+    grads = []
+    for b in range(PSUM_SHARDS):
+        _, tree = value_and_grad(api.loss_fn, model,
+                                 pipe.device_batch(b, device=dev),
+                                 api.ref_leaves(model))
+        grads.append({k: leaf.stacked().detach() for k, leaf in tree.items()})
+    fp32_bytes, int8_bytes = Int8Compressor.wire_bytes(tree)
+    del model, tree
+    worst, largest, cpu_psum_s = 0.0, None, 0.0
+    for key in grads[0]:
+        shards = [g[key] for g in grads]
+        got = compressed_psum(shards)
+        t = time.time()
+        want = compressed_psum([x.cpu() for x in shards])
+        cpu_psum_s += time.time() - t
+        check(got.device == shards[0].device and same_bits(want, got.cpu()),
+              f"compressed_psum of {key} differs from the CPU's")
+        scale = max(float(x.abs().max()) for x in shards) / 127.0
+        err = float((got - torch.stack(shards).sum(0)).abs().max())
+        check(err <= 8 * scale, f"compressed_psum of {key}: {err} from the "
+              f"fp32 sum, over 8 x scale {8 * scale}")
+        worst = max(worst, err / max(scale, 1e-30))
+        if largest is None or shards[0].numel() > largest[1][0].numel():
+            largest = (key, shards)
+    key, shards = largest
+    psum_ms = time_ms(lambda: compressed_psum(shards), reps=5)
+    log(f"[placement] compressed_psum over {PSUM_SHARDS} shards on "
+        f"[{shards[0].device}] x {PSUM_SHARDS}: the {TRAIN_CUT}-layer cut's fp32 gradient "
+        f"leaves from batches 0-{PSUM_SHARDS - 1} ({B} x {S}), {len(grads[0])} "
+        f"leaves bit for bit the CPU's on the same shards ({cpu_psum_s:.1f} s "
+        f"there), each within {worst:.3f} x its scale of the fp32 sum (limit "
+        f"8); the largest leaf {key} {tuple(shards[0].shape)}: "
+        f"{psum_ms:.4f} ms a call; wire bytes a reduction int8 {int8_bytes} "
+        f"vs fp32 {fp32_bytes} ({int8_bytes / fp32_bytes:.4f}) on {card}")
+    del grads, shards, largest
+    torch.cuda.empty_cache()
+    wall = time.time() - t0
+    check(wall <= PLACE_MAX_S, f"phase 18 took {wall:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -4600,15 +4821,19 @@ def main() -> int:
             key: summary})
         errs["decode_attention"] = max(errs["decode_attention"], err)
 
-    t = time.time()
-    train_held, train_ms = train_phase(dev, peaks, card)
-    log(f"[train] phase {time.time() - t:.1f} s")
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        t = time.time()
+        train_held, train_ms = train_phase(dev, peaks, card, ckpt_dir)
+        log(f"[train] phase {time.time() - t:.1f} s")
+        t = time.time()
+        placement_phase(dev, card, ckpt_dir)
+        log(f"[placement] phase 18 {time.time() - t:.1f} s on {card}")
 
     t = time.time()
     dryrun_phase(card, train_held, train_ms, decode_ms)
     log(f"[dryrun] phase 17 {time.time() - t:.1f} s")
 
-    # ---- 18. kernels line ------------------------------------------------
+    # ---- 19. kernels line ------------------------------------------------
     kernels = [dict(name=k, route="cuda", source=SOURCES[k],
                     replaces=REPLACES[k], launches=launches[k],
                     max_abs_err=errs[k], **timing[k])

@@ -5,19 +5,22 @@ Every batch is a pure function of ``(seed, step)`` via a counter-based RNG
 (Philox), so a restarted job regenerates the exact byte-identical batch
 stream with zero coordination: the fault-tolerance contract the trainer's
 restart test relies on.  The batches are numpy, byte for byte the
-reference's; ``device_batch`` hands them over as tensors.  A host can
-materialize only its slice ``batch[lo:hi]`` without generating the rest.
+reference's; ``device_batch`` hands them over as tensors, on the card
+unless the caller asks for the CPU, each key whole or placed on a mesh
+(``distributed/sharding.py``).  A host can materialize only its slice
+``batch[lo:hi]`` without generating the rest.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.distributed.sharding import place
 
 __all__ = ["PipelineSpec"]
 
@@ -58,7 +61,23 @@ class PipelineSpec:
             ).astype(np.float32)[lo:hi]
         return out
 
-    def device_batch(self, step: int, device="cpu") -> Dict[str, torch.Tensor]:
-        """:meth:`batch` as tensors on ``device``."""
-        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-                for k, v in self.batch(step).items()}
+    def device_batch(self, step: int, device="cuda",
+                     shardings: Optional[Mapping[str, Any]] = None
+                     ) -> Dict[str, Any]:
+        """:meth:`batch` as tensors: a key of ``shardings`` (a
+        ``distributed.sharding.Placement`` a key, as ``placements`` of
+        ``batch_pspecs`` gives) comes back a ``Sharded`` on its placement,
+        the reference's ``device_put(v, shardings[k])``; every other key
+        whole on ``device``.  ``device`` is the card unless the caller
+        passes ``"cpu"``; it raises where no card is present."""
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "device_batch puts batches on a CUDA device by default and "
+                "none is available; pass device='cpu' for the CPU")
+        shardings = shardings or {}
+        out: Dict[str, Any] = {}
+        for k, v in self.batch(step).items():
+            t = torch.from_numpy(np.ascontiguousarray(v))
+            out[k] = place(t, shardings[k]) if k in shardings else t.to(device)
+        return out

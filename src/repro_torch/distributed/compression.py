@@ -6,20 +6,23 @@ quantization residual in an error-feedback buffer that is added back the
 next step.  A stacked leaf (``blocks/attn/wq`` over the layers) shares one
 scale, as it does in the reference.  ``quantize_int8`` keeps the
 reference's order of operations (``x / scale``, round half to even, clip),
-so ``q`` and the scale are its bits on the CPU.  The reference's
-``compressed_psum`` (an int8 all-reduce inside ``shard_map``) belongs to
-the distributed tooling, which the port has not taken yet.
+so ``q`` and the scale are its bits on the CPU.  ``compressed_psum`` is
+the reference's int8 all-reduce (its ``shard_map`` building block) over
+the port's shard lists (``launch/mesh.py``): one tensor a shard along the
+reduced axis, each on its own device, reduced in shard order on the
+first shard's device.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Tuple
+from typing import Dict, List, Mapping, Sequence, Tuple
 
 import torch
 
 from repro_torch.models.param_tree import Path, RefLeaf
 
-__all__ = ["quantize_int8", "dequantize_int8", "Int8Compressor"]
+__all__ = ["quantize_int8", "dequantize_int8", "Int8Compressor",
+           "compressed_psum"]
 
 F32 = torch.float32
 
@@ -87,3 +90,30 @@ class Int8Compressor:
         4 bytes an element, or 1 and a 4-byte scale a leaf."""
         sizes = [sum(p.numel() for p in leaf.parts) for leaf in grads.values()]
         return sum(4 * n for n in sizes), sum(n + 4 for n in sizes)
+
+
+def compressed_psum(shards: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The int8-quantized all-reduce of same-shaped ``shards``: each
+    shard's scale is ``max(|x|, 1e-12) / 127``, the shared scale their
+    maximum (the reference's ``pmax``), each shard is quantized as
+    ``clip(round(x / scale), -127, 127)`` in int32, the quantized shards
+    are summed in int32 in shard order on the first shard's device (the
+    reference's ``psum``), and the sum comes back in fp32 times the scale,
+    on that device.  Every step but the division by the scale is exact or
+    elementwise in one rounding, so the result is the reference's bit for
+    bit wherever the division is IEEE's (the CPU, and the card, where the
+    scale stays a device tensor)."""
+    if not shards:
+        raise ValueError("compressed_psum needs at least one shard")
+    shapes = {tuple(s.shape) for s in shards}
+    if len(shapes) != 1:
+        raise ValueError(f"compressed_psum's shards differ in shape: {shapes}")
+    home = shards[0].device
+    x32 = [s.to(F32) for s in shards]
+    scale = torch.max(torch.stack([
+        _scale_of(torch.max(torch.abs(x))).to(home) for x in x32]))
+    total = torch.zeros(x32[0].shape, dtype=torch.int32, device=home)
+    for x in x32:
+        q = torch.div(x, scale.to(x.device)).round_().clamp_(-127, 127)
+        total += q.to(torch.int32).to(home)
+    return total.to(F32) * scale

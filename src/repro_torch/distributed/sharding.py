@@ -32,26 +32,35 @@ gives its counterpart in ``kv`` / ``tail_kv`` / ``states`` /
 
 :func:`placements` is the counterpart of the reference's ``to_named``: a
 tree of :class:`Placement` (mesh + spec), which gives a leaf's shard shape
-and bytes on one device.  No tensor moves: the port runs a sharded op as a
-list of shards (``launch/mesh.py``), and the dry run reads placements only
-to count bytes and collectives.
+and bytes on one device; the dry run reads placements only to count bytes
+and collectives.  :func:`place` moves a real tensor onto a placement, as
+``jax.device_put(x, NamedSharding(mesh, spec))`` does: a :class:`Sharded`
+holds one :class:`Shard` a mesh entry, in the mesh's row-major order,
+each a contiguous copy of its block of the whole leaf on its entry's
+device (the list of shards a leaf of ``launch/mesh.py``, over a mesh of
+several axes).  :func:`gather` puts the whole leaf back together on one
+device, and :func:`place_tree` places a tree leaf by leaf.  The port runs
+its models on whole tensors; placed leaves are what a restore onto a mesh
+(``training/checkpoint.py``) and a sharded batch (``data/pipeline.py``)
+hand over.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Mapping, Optional, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.launch.mesh import Mesh, MeshAxes
-from repro_torch.models.param_tree import Path
+from repro_torch.models.param_tree import Path, RefLeaf
 
-__all__ = ["P", "Placement", "param_pspecs", "zero_param_pspecs",
-           "batch_pspecs", "cache_pspecs", "placements", "map_tree",
-           "tree_leaves"]
+__all__ = ["P", "Placement", "Shard", "Sharded", "param_pspecs",
+           "zero_param_pspecs", "batch_pspecs", "cache_pspecs", "placements",
+           "place", "gather", "place_tree", "map_tree", "tree_leaves"]
 
 Tree = Any
 
@@ -370,13 +379,15 @@ class Placement:
     mesh: Mesh
     spec: P
 
+    def _axes(self, dim: int) -> Tuple[str, ...]:
+        if dim >= len(self.spec) or self.spec[dim] is None:
+            return ()
+        names = self.spec[dim]
+        return names if isinstance(names, tuple) else (names,)
+
     def ways(self, dim: int) -> int:
         """How many shards dim ``dim`` is cut into."""
-        if dim >= len(self.spec) or self.spec[dim] is None:
-            return 1
-        names = self.spec[dim]
-        names = names if isinstance(names, tuple) else (names,)
-        return math.prod(self.mesh.shape[n] for n in names)
+        return math.prod(self.mesh.shape[n] for n in self._axes(dim))
 
     def shard_shape(self, shape) -> Tuple[int, ...]:
         """One device's shard of a leaf of ``shape`` (a dim its axes do not
@@ -387,6 +398,39 @@ class Placement:
         item = torch.empty((), dtype=dtype).element_size()
         return math.prod(self.shard_shape(shape)) * item
 
+    def index(self, shape, entry: int) -> Tuple[slice, ...]:
+        """The block of a leaf of ``shape`` that mesh entry ``entry`` (row-
+        major, as ``mesh.flat()``) holds: dim ``i`` cut into ``ways(i)``
+        equal blocks, the entry's coordinates along the dim's axes composed
+        row-major; a dim that names no axis whole.  Raises where the spec
+        is longer than the leaf's rank, names an axis the mesh lacks, or
+        a dim's axes do not divide it (as ``jax.device_put`` does)."""
+        shape = tuple(int(n) for n in shape)
+        if len(self.spec) > len(shape):
+            raise ValueError(f"spec {self.spec} is longer than the rank of a "
+                             f"leaf of shape {shape}")
+        sizes = self.mesh.shape
+        for i in range(len(shape)):
+            for name in self._axes(i):
+                if name not in sizes:
+                    raise ValueError(f"spec {self.spec} names axis {name!r}, "
+                                     f"which the mesh {tuple(sizes)} lacks")
+        coords = dict(zip(self.mesh.axis_names,
+                          np.unravel_index(entry, self.mesh.devices.shape)))
+        out = []
+        for i, n in enumerate(shape):
+            ways = self.ways(i)
+            if n % ways:
+                raise ValueError(f"dim {i} of a leaf of shape {shape} is not "
+                                 f"divisible by the {ways} ways of spec "
+                                 f"{self.spec} on mesh {sizes}")
+            block = 0
+            for name in self._axes(i):
+                block = block * sizes[name] + int(coords[name])
+            size = n // ways
+            out.append(slice(block * size, (block + 1) * size))
+        return tuple(out)
+
 
 def placements(mesh: Mesh, spec_tree: Tree) -> Tree:
     """The counterpart of the reference's ``to_named``: each :class:`P` of
@@ -394,3 +438,93 @@ def placements(mesh: Mesh, spec_tree: Tree) -> Tree:
     paths, as :func:`param_pspecs` returns, keeps its keys)."""
     return map_tree(lambda _, s: Placement(mesh, s), spec_tree,
                     lambda x: isinstance(x, P))
+
+
+# ---------------------------------------------------------------------------
+# real tensors on placements
+# ---------------------------------------------------------------------------
+
+
+def _bounds(index: Tuple[slice, ...]) -> Tuple[Tuple[int, int], ...]:
+    return tuple((s.start, s.stop) for s in index)
+
+
+@dataclasses.dataclass(frozen=True)
+class Shard:
+    """One mesh entry's part of a placed leaf: ``data``, on the entry's
+    device, holds ``whole[index]`` (``index`` a slice a dim, with its
+    bounds)."""
+
+    index: Tuple[slice, ...]
+    data: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class Sharded:
+    """A leaf of ``shape`` and ``dtype`` placed on ``placement``: shard ``n``
+    lives on ``placement.mesh.flat()[n]``."""
+
+    placement: Placement
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+    shards: Tuple[Shard, ...]
+
+    @property
+    def blocks(self) -> int:
+        """How many distinct blocks the leaf is cut into (1: replicated)."""
+        return math.prod(self.placement.ways(i) for i in range(len(self.shape)))
+
+
+def place(x, placement: Placement) -> Sharded:
+    """``x`` (a tensor, a numpy array or a :class:`RefLeaf`, placed by its
+    stacked value) on ``placement``, as ``jax.device_put(x,
+    NamedSharding(mesh, spec))``: each shard a contiguous copy of its
+    block (:meth:`Placement.index`) on its entry's device, its bytes the
+    leaf's.  A mesh may name one device more than once (a test layout);
+    an entry then shares the tensor of an earlier entry that holds the
+    same block on the same device (a replica), since a copy there buys
+    nothing."""
+    if isinstance(x, RefLeaf):
+        x = x.stacked()
+    x = torch.as_tensor(x).detach()
+    copies: Dict[tuple, torch.Tensor] = {}
+    shards: List[Shard] = []
+    for n, dev in enumerate(placement.mesh.flat()):
+        index = placement.index(x.shape, n)
+        key = (dev, _bounds(index))
+        if key not in copies:
+            copies[key] = x[index].to(dev, copy=True,
+                                      memory_format=torch.contiguous_format)
+        shards.append(Shard(index, copies[key]))
+    return Sharded(placement, tuple(x.shape), x.dtype, tuple(shards))
+
+
+def gather(sharded: Sharded, device) -> torch.Tensor:
+    """The whole leaf on ``device``, each block copied once from the first
+    shard that holds it."""
+    out = torch.empty(sharded.shape, dtype=sharded.dtype, device=device)
+    done = set()
+    for shard in sharded.shards:
+        key = _bounds(shard.index)
+        if key not in done:
+            done.add(key)
+            out[shard.index] = shard.data.to(out.device)
+    return out
+
+
+def place_tree(tree: Tree, placement_tree: Tree) -> Tree:
+    """:func:`place` leaf by leaf over ``tree``, whose structure
+    ``placement_tree`` shares (dicts by key, lists and tuples by
+    position); a ``None`` in ``placement_tree`` leaves its leaf, or its
+    whole subtree, as it is."""
+    if placement_tree is None:
+        return tree
+    if isinstance(placement_tree, Placement):
+        return place(tree, placement_tree)
+    if isinstance(placement_tree, Mapping):
+        return {k: place_tree(v, placement_tree[k]) for k, v in tree.items()}
+    if isinstance(placement_tree, (list, tuple)):
+        return type(tree)(place_tree(v, p)
+                          for v, p in zip(tree, placement_tree, strict=True))
+    raise TypeError(f"a placement tree holds Placements, None, dicts, lists "
+                    f"and tuples, not {type(placement_tree).__name__}")

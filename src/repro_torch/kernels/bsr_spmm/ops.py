@@ -4,7 +4,9 @@
                      x [N,B] → y [NBR*bm, B].
 ``bsr_spmm_fleet`` — the whole fleet in one launch: blocks [P,NBR,K,bm,bn],
                      cols [P,NBR,K], counts [P,NBR], x [P,N,B]
-                     → y [P, NBR*bm, B]; row (p, r) stops at counts[p, r].
+                     → y [P, NBR*bm, B]; row (p, r) stops at counts[p, r]
+                     (the reference's ``bsr_spmm_fleet_fused``, also under
+                     that name here).
 ``bsr_spmm_fleet_fused_sharded`` — the fleet split into device blocks (lists
                      of ``bsr_spmm_fleet``'s operands, one entry a shard of
                      the worker axis, each on its own device): one fleet
@@ -52,7 +54,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.bsr_spmm.ref import bsr_spmm_fleet_ref, bsr_spmm_fused_ref
 
-__all__ = ["bsr_spmm", "bsr_spmm_fleet", "bsr_spmm_fleet_sharded",
+__all__ = ["bsr_spmm", "bsr_spmm_fleet", "bsr_spmm_fleet_fused",
+           "bsr_spmm_fleet_sharded",
            "bsr_spmm_fleet_fused_sharded", "prepare_bsr_operands",
            "sparse_layer_apply", "layer_work", "LAUNCHES",
            "MAX_BLOCK", "load_library", "library_path"]
@@ -152,7 +155,9 @@ def bsr_spmm(blocks: torch.Tensor, cols: torch.Tensor, x: torch.Tensor, *,
 def bsr_spmm_fleet(blocks: torch.Tensor, cols: torch.Tensor,
                    counts: torch.Tensor, x: torch.Tensor, *, bias: float,
                    clip: float = 32.0) -> torch.Tensor:
-    """The whole fleet's layer on ``x``'s device (see the module docstring)."""
+    """The whole fleet's layer on ``x``'s device (see the module docstring):
+    the reference's ``bsr_spmm_fleet_fused`` (one launch over every
+    worker), not its ``bsr_spmm_fleet``, which vmaps the per-worker kernel."""
     dev = x.device
     _check("x", x, torch.float32, 3, dev)
     _check("blocks", blocks, torch.float32, 5, dev)
@@ -179,6 +184,10 @@ def bsr_spmm_fleet(blocks: torch.Tensor, cols: torch.Tensor,
             n, b, float(bias), float(clip))
     LAUNCHES["bsr_spmm_fleet"] += 1
     return y
+
+
+# the reference's name for the one-launch fleet op
+bsr_spmm_fleet_fused = bsr_spmm_fleet
 
 
 def bsr_spmm_fleet_fused_sharded(blocks, cols, counts, x, *, bias: float,

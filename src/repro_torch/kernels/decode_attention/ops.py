@@ -42,8 +42,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
-__all__ = ["decode_mha", "launch", "plan_for", "check_kernel_shape",
-           "LAUNCHES", "GROUPS",
+__all__ = ["decode_mha", "decode_mha_cache_size", "launch", "plan_for",
+           "check_kernel_shape", "LAUNCHES", "GROUPS",
            "HEAD_DIMS", "SPLIT_TILE", "MAX_SPLIT_TILES", "load_library",
            "library_path", "release_scratch", "split_plan"]
 
@@ -128,6 +128,14 @@ def plan_for(q: torch.Tensor, k_cache: torch.Tensor) -> Tuple[int, int]:
     B, H, D = q.shape
     KV, S = k_cache.shape[1], k_cache.shape[2]
     return _plan(S, B * KV, q.device.index, H // KV, D, _DTYPES[q.dtype])
+
+
+def decode_mha_cache_size() -> int:
+    """The launch plans cached so far (one a capacity, B·KV, device, G, D
+    and dtype; ``cache_len`` is not a key): a decode loop over a growing
+    cache adds none after its first step, as the reference's jit cache
+    adds no trace.  The plain version caches nothing."""
+    return _plan.cache_info().currsize
 
 
 def _raise_on(err: int, entry: str) -> None:

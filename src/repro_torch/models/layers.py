@@ -67,9 +67,10 @@ def set_tp_psum_dtype(dtype) -> None:
 def constrain(x: torch.Tensor, *axes) -> torch.Tensor:
     """The reference's sharding hint: symbolic axes (``"dp"``,
     ``"model"``, ``None``) or one ``distributed.sharding.Placement``.  A
-    hint places a value and never changes it; the port moves no tensor onto
-    a placement (the dry run reads placements to cost a step), so ``x``
-    comes back unchanged."""
+    hint places a value and never changes it, and the port's model code
+    runs on whole tensors, so ``x`` comes back unchanged (the dry run reads
+    placements to cost a step; ``distributed.sharding.place`` moves a
+    tensor onto one)."""
     return x
 
 

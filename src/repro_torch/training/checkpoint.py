@@ -17,8 +17,10 @@ tree like the one saved, in place; :func:`load_arrays` reads one as numpy
 (what a family's ``params_from_arrays`` takes).  :class:`AsyncCheckpointer`
 copies the tree to host memory before it returns (so the next optimizer
 step, which writes the parameters in place, cannot race the write) and
-writes the files on a worker thread.  Restoring onto another mesh (the
-reference's ``shardings=``) belongs to the distributed tooling.
+writes the files on a worker thread.  ``restore(..., shardings=)`` is the
+elastic restore: a checkpoint written on one mesh comes back placed on
+another (``distributed/sharding.py``), each shard cut on the host and
+copied to its own device.
 """
 
 from __future__ import annotations
@@ -28,12 +30,13 @@ import os
 import shutil
 import zlib
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.models.param_tree import RefLeaf, flatten, nest
+from repro_torch.distributed.sharding import Placement, place
+from repro_torch.models.param_tree import Path, RefLeaf, flatten, nest
 
 __all__ = ["save", "restore", "load_arrays", "latest_steps",
            "AsyncCheckpointer"]
@@ -168,31 +171,83 @@ def _read(ckpt_dir: str, step: Optional[int], names, verify: bool):
 
 
 def _tensor(arr: np.ndarray, logical: str) -> torch.Tensor:
-    arr = np.array(arr, copy=True)  # writable, C order, 0-d kept 0-d
+    # writable and in C order (what np.load returns is kept, not copied)
+    arr = np.require(arr, requirements=("C", "W"))
     if logical == "bfloat16":
         return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     return torch.from_numpy(arr)
 
 
+def _placement_paths(tree: Any, prefix: Path = ()
+                     ) -> Dict[Path, Optional[Placement]]:
+    """``{path: Placement or None}`` of a ``shardings`` tree; a dict keyed
+    by path tuples (``placements`` of ``param_pspecs``) spreads its keys
+    into the path, and a ``None`` may stand for a whole subtree."""
+    if tree is None or isinstance(tree, Placement):
+        return {prefix: tree}
+    if not isinstance(tree, Mapping):
+        raise TypeError(f"shardings holds Placements, None and dicts, not "
+                        f"{type(tree).__name__} at {prefix}")
+    out: Dict[Path, Optional[Placement]] = {}
+    for key, sub in tree.items():
+        keys = tuple(map(str, key)) if isinstance(key, tuple) else (str(key),)
+        out.update(_placement_paths(sub, prefix + keys))
+    return out
+
+
+def _placement_of(table: Dict[Path, Optional[Placement]], path: Path
+                  ) -> Optional[Placement]:
+    for n in range(len(path), -1, -1):
+        if path[:n] in table:
+            return table[path[:n]]
+    raise ValueError(f"shardings has no entry for leaf {path}")
+
+
+def _with_leaves(tree: Any, new: Dict[Path, Any], prefix: Path = ()) -> Any:
+    """``tree`` rebuilt with the leaves at ``new``'s paths replaced."""
+    if isinstance(tree, Mapping):
+        return {k: _with_leaves(v, new, prefix + (str(k),))
+                for k, v in tree.items()}
+    return new.get(prefix, tree)
+
+
 def restore(ckpt_dir: str, tree_like: Any, step: Optional[int] = None,
-            verify: bool = True) -> Tuple[Any, int]:
+            shardings: Any = None, verify: bool = True) -> Tuple[Any, int]:
     """Load a checkpoint (the latest, or ``step``) into ``tree_like``, whose
     leaves are tensors and :class:`RefLeaf`\\ s: each is written in place
-    (cast to its dtype).  Returns (``tree_like``, the step)."""
+    (cast to its dtype).  Returns (``tree_like``, the step).
+
+    ``shardings`` (the reference's elastic restore): a tree shaped like
+    ``tree_like`` whose leaves are ``distributed.sharding.Placement``\\ s
+    or ``None`` (for a training state, ``{"params": placements(mesh,
+    param_pspecs(...)), "opt": placements(mesh, opt.state_pspecs(...))}``).
+    A leaf with a placement comes back as a ``Sharded`` of the saved dtype,
+    as the reference's ``device_put`` gives it: its shards are cut on the
+    host from the loaded array and copied each to its own device, so the
+    whole leaf never sits on one device, and its like is left as it was.
+    The other leaves are written in place as above.  The return value is
+    then a new tree, the placed leaves in place of their likes."""
     flat_like = flatten(tree_like)
     arrays, step = _read(ckpt_dir, step,
                          [_SEP.join(p) for p in flat_like], verify)
+    table = None if shardings is None else _placement_paths(shardings)
+    placed: Dict[Path, Any] = {}
     for path, like in flat_like.items():
         t = _tensor(*arrays[_SEP.join(path)])
-        if isinstance(like, RefLeaf):
-            like.assign(t)
-            continue
         if tuple(like.shape) != tuple(t.shape):
             raise ValueError(f"leaf {path}: shape {tuple(t.shape)} != "
                              f"{tuple(like.shape)}")
-        with torch.no_grad():
-            like.copy_(t)
-    return tree_like, step
+        placement = None if table is None else _placement_of(table, path)
+        if placement is not None:
+            placed[path] = place(t, placement)
+        elif isinstance(like, RefLeaf):
+            like.assign(t)
+        else:
+            with torch.no_grad():
+                like.copy_(t)
+    if table is None:
+        return tree_like, step
+    return _with_leaves(tree_like, placed), step
 
 
 def load_arrays(ckpt_dir: str, step: Optional[int] = None,

@@ -9,7 +9,14 @@ paths, held to the reference on the CPU:
 * ``kernels/bsr_spmm``: ``prepare_bsr_operands``, ``sparse_layer_apply``
   (the plain version of the ``bsr_spmm`` kernel on the CPU; the kernel on
   the card is ``chip_smoke.py``'s) within 1e-5 of the reference's Pallas
-  kernel in interpret mode, and ``ref.bsr_to_dense`` exactly.
+  kernel in interpret mode, and ``ref.bsr_to_dense`` exactly;
+  ``bsr_spmm_fleet_fused``, the reference's name and signature for the
+  one-launch fleet op (the port's ``bsr_spmm_fleet``), within 1e-5 of the
+  reference's;
+* ``kernels/decode_attention``: ``decode_mha_cache_size``, the launch
+  plans cached (0 after the plain version's calls, which plan nothing;
+  ``chip_smoke.py`` checks on the card that ten growing cache lengths add
+  no plan, as the reference's test does for its jit cache).
 """
 
 import dataclasses
@@ -24,12 +31,18 @@ pytest.importorskip("jax")
 from repro.configs import get_config as ref_get_config  # noqa: E402
 from repro.configs import list_archs as ref_list_archs  # noqa: E402
 from repro.core import sparse as ref_sparse  # noqa: E402
+import inspect  # noqa: E402
+
+import jax.numpy as jnp  # noqa: E402
+
 from repro.kernels.bsr_spmm import ops as ref_ops  # noqa: E402
+from repro.kernels.decode_attention import ops as ref_decode_ops  # noqa: E402
 from repro.kernels.bsr_spmm import ref as ref_bsr_ref  # noqa: E402
 from repro.serving import router as ref_router  # noqa: E402
 from repro_torch.configs import get_config, list_archs  # noqa: E402
 from repro_torch.core import sparse  # noqa: E402
 from repro_torch.kernels.bsr_spmm import ops, ref  # noqa: E402
+from repro_torch.kernels.decode_attention import ops as decode_ops  # noqa: E402
 from repro_torch.serving import router  # noqa: E402
 
 GRID = list(itertools.product(
@@ -119,3 +132,43 @@ def test_sparse_layer_apply_runs_on_the_card_by_default(monkeypatch):
     with pytest.raises(ValueError, match="cuda or cpu"):
         ops.sparse_layer_apply(bsr, np.ones((16, 2), np.float32), 0.0,
                                device="meta")
+
+
+def test_bsr_spmm_fleet_fused_is_the_one_launch_fleet_op():
+    assert "bsr_spmm_fleet_fused" in ops.__all__
+    assert ops.bsr_spmm_fleet_fused is ops.bsr_spmm_fleet
+    # the reference's signature, less its Pallas knobs (batch_block, interpret)
+    names = list(inspect.signature(ops.bsr_spmm_fleet_fused).parameters)
+    assert names == ["blocks", "cols", "counts", "x", "bias", "clip"]
+    assert list(inspect.signature(ref_ops.bsr_spmm_fleet_fused).parameters
+                )[:6] == names
+    rng = np.random.default_rng(3)
+    p, nbr, k, bm, bn, n_cols, b = 3, 4, 3, 8, 8, 5, 6
+    blocks = rng.standard_normal((p, nbr, k, bm, bn)).astype(np.float32)
+    cols = rng.integers(0, n_cols, size=(p, nbr, k)).astype(np.int32)
+    counts = rng.integers(0, k + 1, size=(p, nbr)).astype(np.int32)
+    x = np.abs(rng.standard_normal((p, n_cols * bn, b))).astype(np.float32)
+    launches = dict(ops.LAUNCHES)
+    got = ops.bsr_spmm_fleet_fused(*(torch.from_numpy(a) for a in
+                                     (blocks, cols, counts, x)),
+                                   bias=-0.1, clip=4.0)
+    want = ref_ops.bsr_spmm_fleet_fused(*(jnp.asarray(a) for a in
+                                          (blocks, cols, counts, x)),
+                                        bias=-0.1, clip=4.0, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    assert ops.LAUNCHES == launches   # the CPU launches no kernel
+
+
+def test_decode_mha_cache_size_counts_launch_plans():
+    assert "decode_mha_cache_size" in decode_ops.__all__
+    assert callable(ref_decode_ops.decode_mha_cache_size)
+    rng = np.random.default_rng(0)
+    B, H, KV, S, D = 1, 4, 2, 64, 32
+    q = torch.from_numpy(rng.standard_normal((B, H, D)).astype(np.float32))
+    k = torch.from_numpy(rng.standard_normal((B, KV, S, D)).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((B, KV, S, D)).astype(np.float32))
+    before = decode_ops.decode_mha_cache_size()
+    for cache_len in range(1, 12):
+        decode_ops.decode_mha(q, k, v, torch.tensor(cache_len, dtype=torch.int32))
+    assert decode_ops.decode_mha_cache_size() == before == 0

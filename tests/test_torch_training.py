@@ -81,7 +81,7 @@ def test_pipeline_batches_byte_identical(arch):
         assert sorted(a) == sorted(b)
         for k in a:
             assert a[k].dtype == b[k].dtype and a[k].tobytes() == b[k].tobytes()
-    dev = port.device_batch(7)
+    dev = port.device_batch(7, device="cpu")
     for k, v in port.batch(7).items():
         np.testing.assert_array_equal(dev[k].numpy(), v)
     assert not np.array_equal(port.batch(7)["tokens"], port.batch(8)["tokens"])
