@@ -1,0 +1,12 @@
+"""The benchmark's own tests: ``python -m pytest portbench/tests`` from the
+root of the checkout.  They import the harness's modules (``pbcore``,
+``entries``, ``reference``) and the port from ``src``."""
+
+import os
+import sys
+
+BENCH = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ROOT = os.path.dirname(BENCH)
+for path in (BENCH, os.path.join(ROOT, "src")):
+    if path not in sys.path:
+        sys.path.insert(0, path)
