@@ -60,9 +60,9 @@ Run from the root of a checkout.  Phases, each printed as it ends:
    one capture over all its streams (a trace short of the count, as the
    profiler has once lost 9 of its events, is taken again, up to three
    times), the same stream eager bit for bit equal,
-   ms a step (between CUDA events) and tokens/s graphed and eager, the
-   device's busy share from ``torch.profiler`` over 4 steps, the gather's
-   device time, and slot-steps against padded static batching; then 4 of the requests with
+   ms a step (between CUDA events) and the decode steps' tokens/s graphed
+   and eager, the gather's device time, and slot-steps against padded
+   static batching; then 4 of the requests with
    fp32 params, each bit for bit itself served alone through the same
    scheduler, and with the tokens of ``generate`` at B 1 (logits within
    1e-4); mamba2-370m's shorter stream runs in phase 7 (graphed, no
@@ -364,12 +364,11 @@ SSM_CPU_TOL = dict(rtol=1e-4, atol=1e-4)
 # first held to its plain version with one length per row (the rows'
 # lengths below, at the serving shape); CB_SOLO of the requests in fp32
 # against each one served alone (bit for bit) and against generate at B 1
-# (tokens identical, logits within 1e-4); the profiler over CB_PROFILE =
-# (first step, steps) of the stream; mamba2-370m's shorter stream: requests,
-# slots, prompt lengths, budgets
+# (tokens identical, logits within 1e-4); mamba2-370m's shorter stream:
+# requests, slots, prompt lengths, budgets
 CB_REQUESTS, CB_SLOTS, CB_MAX_LEN = 16, 8, PROMPT + 64
 CB_PROMPTS, CB_BUDGETS, CB_ARRIVALS = (64, 512), (8, 64), 24
-CB_SOLO, CB_PROFILE = 4, (16, 4)
+CB_SOLO = 4
 TRACE_ATTEMPTS = 3     # traces of the graphed stream, until one is whole
 CB_LENS = (0, 1, 63, 64, 65, 544, 640, 513)
 CB_SSM = (8, 4, (64, 256), (4, 16))
@@ -1518,44 +1517,26 @@ def cb_requests(n: int, prompts, budgets, arrivals: int, vocab: int, seed: int):
             for i in range(n)]
 
 
-def drive(sched, reqs, profile=None):
+def drive(sched, reqs):
     """Serve ``reqs`` through the scheduler ``sched``.  Returns (results by
     rid, host wall in s, each decode step's ms between two CUDA events
-    around it, and with ``profile`` = (first step, steps) the profiler's
-    device rows over those steps, else None)."""
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as Profile
-
+    around it)."""
     events = []
-    prof = (Profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-            if profile else None)
-    on = []
 
     def step(launch):
-        k = len(events)
-        if prof is not None and k == profile[0]:
-            torch.cuda.synchronize()
-            prof.start()
-            on.append(True)
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
         launch()
         e1.record()
         events.append((e0, e1))
-        if on and k == profile[0] + profile[1] - 1:
-            torch.cuda.synchronize()
-            prof.stop()
 
     torch.cuda.synchronize()
     t = time.perf_counter()
     res = sched.run(reqs, around_step=step)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
-    check(not profile or len(events) >= sum(profile),
-          f"the stream ran {len(events)} steps, fewer than the profiled ones")
-    return ({r.rid: r for r in res}, wall, [a.elapsed_time(b) for a, b in events],
-            device_rows(prof) if prof is not None else None)
+    return ({r.rid: r for r in res}, wall, [a.elapsed_time(b) for a, b in events])
 
 
 def traced_launches(sched, reqs, kernel: str):
@@ -1643,7 +1624,7 @@ def cb_phase(dev, peaks, card):
     """Continuous batching at internlm2-1.8b's full width (24 layers, bf16
     params from seed 0, ``torch-splitk``): the per-row decode kernel, then
     the ragged stream graphed and eager (bit for bit the same), its
-    launches, capture count, step times, tokens/s, busy share, the
+    launches, capture count, step times, the decode steps' tokens/s, the
     gather's device time and slot-steps, then fp32 requests against solo
     runs and ``generate``.  Returns (the decode kernel's launches in the
     profiler's trace of the graphed stream, the per-row check's max error,
@@ -1683,7 +1664,7 @@ def cb_phase(dev, peaks, card):
         f"pages of {layout.block_k} tokens, {pool.num_blocks} pages "
         f"({pool_bytes / 1e9:.2f} GB of K and V); scheduler built, step "
         f"warmed up and captured in {t_build:.2f} s")
-    res_g, wall_g, ms_g, _ = drive(sched, reqs)
+    res_g, _, ms_g = drive(sched, reqs)
     # the wrapper counts the launches it makes: the warm-up's and the ones
     # the capture records; the replays run the graph, not the wrapper
     built = read_counts()
@@ -1723,31 +1704,17 @@ def cb_phase(dev, peaks, card):
               f"request {r.rid}: tokens {got.tokens.shape} or logits wrong")
     eager = scheduler(engine.params, False)
     reset_counts()
-    res_e, wall_e, ms_e, _ = drive(eager, reqs)
+    res_e, _, ms_e = drive(eager, reqs)
     launches = read_counts()
     want = only(launches, decode_attention=cfg.n_layers * steps)
     check(launches == want, f"eager stream launches {launches}, want {want}")
     same_results(res_g, res_e, "graph vs eager")
     check(eager.steps_run == steps and eager.captures == 0, "eager steps differ")
-    _, _, _, rows_g = drive(sched, reqs, CB_PROFILE)
-    _, _, _, rows_e = drive(eager, reqs, CB_PROFILE)
-    streams += 1
     check(sched.captures == 1, f"{sched.captures} captures over {streams} streams")
     tokens = sum(r.max_new_tokens for r in reqs)
     check(sched.tokens_emitted == streams * tokens, "tokens emitted != the budgets")
     static = static_slot_steps(reqs, CB_SLOTS)
     med_g, med_e = statistics.median(ms_g), statistics.median(ms_e)
-
-    def busy(rows, med):
-        dev_ms = sum(us for _, us, _ in rows) / 1e3 / CB_PROFILE[1]
-        if dev_ms <= 0:
-            return None, "not measured (no device time in the trace)"
-        n = sum(c for _, _, c in rows) / CB_PROFILE[1]
-        return dev_ms, (f"{dev_ms:.3f} ms of device time over {n:.0f} kernels "
-                        f"a step, busy {100 * dev_ms / med:.1f}%")
-
-    dev_g, busy_g = busy(rows_g, med_g)
-    dev_e, busy_e = busy(rows_e, med_e)
     gather = lambda: pool.gather(pool.buffers, sched._tables_dev)  # noqa: E731
     g_b2b, g_graph, g_dev = burst_ms(gather, n=20, reps=3)
     g_bytes = 2 * 2 * pool.buffers["k"][0, 0].numel() * pool.buffers["k"].element_size() \
@@ -1761,16 +1728,9 @@ def cb_phase(dev, peaks, card):
         f"{sched.captures} (over {streams} streams); graph and eager tokens and "
         f"final logits bit for bit equal")
     log(f"[stream] ms a step (median between CUDA events): graph {med_g:.3f}, "
-        f"eager {med_e:.3f} ({med_e / med_g:.2f}x); stream wall (prefills "
-        f"included): graph {wall_g:.3f} s, {tokens / wall_g:.1f} tokens/s; eager "
-        f"{wall_e:.3f} s, {tokens / wall_e:.1f} tokens/s; decode steps alone: "
+        f"eager {med_e:.3f} ({med_e / med_g:.2f}x); decode steps alone: "
         f"graph {tokens / sum(ms_g) * 1e3:.1f} tokens/s, eager "
         f"{tokens / sum(ms_e) * 1e3:.1f} tokens/s, on {card}")
-    log(f"[stream] profiler over steps {CB_PROFILE[0]}-{sum(CB_PROFILE) - 1}: "
-        f"graph {busy_g}; eager {busy_e}")
-    for key, us, n in (rows_g or rows_e)[:8]:
-        log(f"  {us / 1e3 / CB_PROFILE[1]:9.4f} ms/step  "
-            f"{n / CB_PROFILE[1]:6.1f} x/step  {key[:80]}")
     log(f"[stream] gather of K and V ([{cfg.n_layers}, {CB_SLOTS}, "
         f"{cfg.eff_kv_heads}, {cap}, {cfg.d_head}] each, {g_bytes / 1e9:.3f} GB "
         f"read and written): {g_b2b:.4f} ms back to back, {g_graph:.4f} from a "
@@ -1781,9 +1741,7 @@ def cb_phase(dev, peaks, card):
     check(steps * CB_SLOTS < static, "continuous batching spent no fewer "
                                      "slot-steps than padded static batches")
     summary = dict(steps=steps, tokens=tokens, step_ms_graph=med_g,
-                   step_ms_eager=med_e, tokens_per_s_graph=tokens / wall_g,
-                   tokens_per_s_eager=tokens / wall_e, busy_device_ms_graph=dev_g,
-                   busy_device_ms_eager=dev_e, gather_graph_ms=g_graph,
+                   step_ms_eager=med_e, gather_graph_ms=g_graph,
                    gather_device_ms=g_dev, slot_steps=steps * CB_SLOTS,
                    static_slot_steps=static)
     del sched, eager, pool, gather
@@ -1845,7 +1803,7 @@ def cb_ssm(engine, dev, card) -> None:
 
     sched = scheduler(True)
     reset_counts()
-    res, wall, ms, _ = drive(sched, reqs)
+    res, wall, ms = drive(sched, reqs)
     launches = read_counts()
     check(launches == only(launches), f"mamba2 stream launches {launches}")
     steps, tokens = sched.steps_run, sched.tokens_emitted
@@ -1853,7 +1811,7 @@ def cb_ssm(engine, dev, card) -> None:
         solo = {x.rid: x for x in sched.run([dataclasses.replace(r, arrival=0)])}
         same_results({r.rid: res[r.rid]}, solo, "mamba2 stream vs solo")
     check(sched.captures == 1, f"{sched.captures} captures")
-    res_e, wall_e, ms_e, _ = drive(scheduler(False), reqs)
+    res_e, wall_e, ms_e = drive(scheduler(False), reqs)
     same_results(res, res_e, "mamba2 graph vs eager")
     log(f"[stream] {cfg.name}: {n} requests (prompts {[len(r.prompt) for r in reqs]}, "
         f"budgets {[r.max_new_tokens for r in reqs]}) through {slots} slots: "
@@ -2076,7 +2034,7 @@ def stream_mesh_phase(dev, card):
                                 mesh=None if d is None else mesh_of(d, dev))
 
     base = scheduler(engine.params, None)
-    res_u, wall_u, ms_u, _ = drive(base, reqs)
+    res_u, wall_u, ms_u = drive(base, reqs)
     del base
     tokens = sum(r.max_new_tokens for r in reqs)
     summary = dict(capacity=cap, unsharded_step_ms_graph=statistics.median(ms_u),
@@ -2090,7 +2048,7 @@ def stream_mesh_phase(dev, card):
     for d in MESH_DS:
         sched = scheduler(engine.params, d)
         check(sched.captures == 1, f"D {d}: the sharded step was not captured")
-        res, wall, ms, _ = drive(sched, reqs)
+        res, wall, ms = drive(sched, reqs)
         share = token_share(res, res_u)
         err = max(float(np.abs(res[r].final_logits - res_u[r].final_logits).max())
                   for r in res_u)
@@ -2113,7 +2071,7 @@ def stream_mesh_phase(dev, card):
             same_results(res, res_t, f"D {d} graph vs graph under the profiler")
             eager = scheduler(engine.params, d, graph=False)
             reset_counts()
-            res_e, wall_e, ms_e, _ = drive(eager, reqs)
+            res_e, wall_e, ms_e = drive(eager, reqs)
             counts = read_counts()
             launches = counts["decode_attention"]
             want = only(counts, decode_attention=cfg.n_layers * d * eager.steps_run)
@@ -3006,11 +2964,11 @@ def moe_stream(engine, dev, card) -> dict:
     sched = scheduler(True)
     torch.cuda.synchronize()
     t_build = time.perf_counter() - t
-    res, wall, ms, _ = drive(sched, reqs)
+    res, wall, ms = drive(sched, reqs)
     steps, tokens = sched.steps_run, sched.tokens_emitted
     eager = scheduler(False)
     reset_counts()
-    res_e, wall_e, ms_e, _ = drive(eager, reqs)
+    res_e, wall_e, ms_e = drive(eager, reqs)
     counts = read_counts()
     want = only(counts, decode_attention=cfg.n_layers * eager.steps_run)
     check(counts == want, f"moe eager stream launches {counts}, want {want}")
@@ -3277,12 +3235,12 @@ def ep_phase(engine, prompts, res, dev, card) -> dict:
                                 layout=layout, device=dev, graph=graph,
                                 mesh=None if mesh_d is None else mesh_of(mesh_d, dev))
 
-    res_u, _, _, _ = drive(scheduler(None, True), reqs)
+    res_u, _, _ = drive(scheduler(None, True), reqs)
     sched = scheduler(d, True)
-    res_g, wall_g, ms_g, _ = drive(sched, reqs)
+    res_g, wall_g, ms_g = drive(sched, reqs)
     eager = scheduler(d, False)
     reset_counts()
-    res_e, wall_e, ms_e, _ = drive(eager, reqs)
+    res_e, wall_e, ms_e = drive(eager, reqs)
     counts = read_counts()
     want = only(counts, decode_attention=cfg.n_layers * d * eager.steps_run)
     check(counts == want, f"moe D {d} eager stream launches {counts}, want {want}")
@@ -3683,11 +3641,11 @@ def family_stream(engine, dev, card) -> dict:
     sched = scheduler(True)
     torch.cuda.synchronize()
     t_build = time.perf_counter() - t
-    res, wall, ms, _ = drive(sched, reqs)
+    res, wall, ms = drive(sched, reqs)
     steps, tokens = sched.steps_run, sched.tokens_emitted
     eager = scheduler(False)
     reset_counts()
-    res_e, wall_e, ms_e, _ = drive(eager, reqs)
+    res_e, wall_e, ms_e = drive(eager, reqs)
     counts = read_counts()
     want = only(counts, decode_attention=launches_a_step(cfg) * eager.steps_run)
     check(counts == want, f"{cfg.name} eager stream launches {counts}, want {want}")

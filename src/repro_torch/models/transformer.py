@@ -29,6 +29,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.backends import KVCacheLayout, get_backend
+from repro_torch.core.spans import span
 from repro_torch.models import layers as L
 from repro_torch.models import param_tree as PT
 from repro_torch.models.attention import (
@@ -249,16 +250,20 @@ def prefill_layers(blocks, x: torch.Tensor, cfg: ModelConfig, max_len: int,
     """Run the prompt's hidden states ``x [B, S, d]`` through ``blocks``;
     ``ffn(block, x)`` is the block's feed-forward half.  Returns the hidden
     states and the blocks' ``[L, B, KV, S_cap, D]`` KV cache in
-    ``cache_dtype`` (default ``x.dtype``), ``length`` S."""
+    ``cache_dtype`` (default ``x.dtype``), ``length`` S.  Each block's
+    halves run under the spans ``model.prefill.attn`` (its K/V write
+    included) and ``model.prefill.ffn`` (``core/spans.py``)."""
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     cache = init_attn_cache(len(blocks), B, max_len, cfg.eff_kv_heads,
                             cfg.d_head, dtype=cache_dtype or x.dtype,
                             layout=layout, device=x.device)
     for i, block in enumerate(blocks):
-        x, k, v = _attn_prefill(block, x, cfg, positions)
-        x = ffn(block, x)
-        update_layer_kv(cache, i, k, v, 0)
+        with span("model.prefill.attn"):
+            x, k, v = _attn_prefill(block, x, cfg, positions)
+            update_layer_kv(cache, i, k, v, 0)
+        with span("model.prefill.ffn"):
+            x = ffn(block, x)
     cache["length"].fill_(S)
     return x, cache
 

@@ -58,6 +58,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.backends import KVCacheLayout
+from repro_torch.core.spans import span
 
 Tree = Any
 
@@ -249,19 +250,22 @@ class KVBlockPool:
         if n > self.table_width:
             raise ValueError(
                 f"request needs {n} pages but tables hold {self.table_width}")
-        ids = self.allocator.alloc(n)
-        bk = self.block_k
+        with span("kv_pool.admit"):
+            ids = self.allocator.alloc(n)
+            bk = self.block_k
 
-        def write(ax, buf, leaf):
-            if ax is None:
-                return buf
-            # [*rest, S, D] -> per-page chunks [n, bk, *rest, D]
-            x = leaf.movedim(-2, 0)[: n * bk]
-            x = x.reshape((n, bk) + tuple(x.shape[1:]))
-            idx = torch.tensor(ids, dtype=torch.long, device=buf.device)
-            return buf.index_copy_(0, idx, x.to(buf.dtype))
+            def write(ax, buf, leaf):
+                if ax is None:
+                    return buf
+                # [*rest, S, D] -> per-page chunks [n, bk, *rest, D]
+                x = leaf.movedim(-2, 0)[: n * bk]
+                x = x.reshape((n, bk) + tuple(x.shape[1:]))
+                with span("kv_pool.sync"):
+                    idx = torch.tensor(ids, dtype=torch.long,
+                                       device=buf.device)
+                return buf.index_copy_(0, idx, x.to(buf.dtype))
 
-        tree_map(write, self.seq_axes, self.buffers, cache)
+            tree_map(write, self.seq_axes, self.buffers, cache)
         table = np.full((self.table_width,), NULL_BLOCK, np.int32)
         table[:n] = ids
         return table

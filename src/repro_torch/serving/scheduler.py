@@ -37,7 +37,11 @@ operation in it synchronises with the host, and outputs that it makes as
 new tensors (``length + 1``, the logits, the next tokens) are copied into
 the scheduler's own tensors, which the graph holds.  Only admission and
 retirement upload the block tables and the active mask.  The tokens each
-step emits stay on the device until the stream ends.
+step emits stay on the device until the stream ends.  Each step's launch,
+admission and retirement run under the spans ``scheduler.step``,
+``scheduler.admit`` and ``scheduler.retire``, each copy to the card that
+waits for it under ``scheduler.sync`` (``core/spans.py``), so that a
+profiler's trace times them on the card's clock.
 
 Bitwise contract (``tests/test_torch_cb_*.py``): a request
 served in a mixed stream gives the same tokens and final-step logits, bit
@@ -61,6 +65,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.backends import KVCacheLayout
+from repro_torch.core.spans import span
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.models.registry import FRONTEND_INPUTS
 from repro_torch.serving.engine import extra_tensors
@@ -301,10 +306,11 @@ class RequestScheduler:
         self.captures += 1
 
     def _launch_step(self) -> None:
-        if self._graph is None:
-            self._step_body()
-        else:
-            self._graph.replay()
+        with span("scheduler.step"):
+            if self._graph is None:
+                self._step_body()
+            else:
+                self._graph.replay()
 
     def _template_extra(self) -> Dict[str, torch.Tensor]:
         cfg = self.model.cfg
@@ -322,35 +328,44 @@ class RequestScheduler:
                 + (self.model.cfg.frontend_tokens or 0))
 
     def _upload(self) -> None:
-        self._tables_dev.copy_(torch.from_numpy(self._tables))
-        self._active_dev.copy_(torch.from_numpy(self._active))
+        """The block tables and the active mask to the card: copies from
+        pageable host memory, each of which waits for the card's stream."""
+        with span("scheduler.sync"):
+            self._tables_dev.copy_(torch.from_numpy(self._tables))
+        with span("scheduler.sync"):
+            self._active_dev.copy_(torch.from_numpy(self._active))
 
     def _admit(self, req: Request, step_idx: int, row: int) -> None:
-        slot = int(np.flatnonzero(~self._active)[0])
-        prompt = torch.as_tensor(np.asarray(req.prompt, np.int64).reshape(1, -1),
-                                 device=self.device)
-        batch = {"tokens": prompt, **extra_tensors(req.extra, self.device)}
-        logits, cache = self.model.prefill(self.params, batch,
-                                           self.slot_capacity)
-        need = self._need(req)
-        n_blocks = (self.layout.blocks_for(need)
-                    if self.pool.table_width else 0)
-        paged, _ = split_cache(cache, self.seq_axes)
-        table = self.pool.admit(paged, need)     # may raise PoolExhausted
-        self._tables[slot] = table
+        with span("scheduler.admit"):
+            slot = int(np.flatnonzero(~self._active)[0])
+            with span("scheduler.sync"):
+                prompt = torch.as_tensor(
+                    np.asarray(req.prompt, np.int64).reshape(1, -1),
+                    device=self.device)
+                batch = {"tokens": prompt,
+                         **extra_tensors(req.extra, self.device)}
+            with span("model.prefill"):
+                logits, cache = self.model.prefill(self.params, batch,
+                                                   self.slot_capacity)
+            need = self._need(req)
+            n_blocks = (self.layout.blocks_for(need)
+                        if self.pool.table_width else 0)
+            paged, _ = split_cache(cache, self.seq_axes)
+            table = self.pool.admit(paged, need)     # may raise PoolExhausted
+            self._tables[slot] = table
 
-        def write(ax, st, leaf):
-            if ax is None:
-                dst = st[slot] if leaf.dim() == 0 else st[:, slot]
-                dst.copy_(leaf if leaf.dim() == 0 else leaf[:, 0])
+            def write(ax, st, leaf):
+                if ax is None:
+                    dst = st[slot] if leaf.dim() == 0 else st[:, slot]
+                    dst.copy_(leaf if leaf.dim() == 0 else leaf[:, 0])
 
-        tree_map(write, self.seq_axes, self._state, cache)
-        self._tokens[slot].copy_(logits[0, -1:].argmax(dim=-1))
-        self._active[slot] = True
-        self._upload()
-        self._slots[slot] = _Slot(request=req, slot=slot, table=table,
-                                  n_blocks=n_blocks,
-                                  first=row, admitted_step=step_idx)
+            tree_map(write, self.seq_axes, self._state, cache)
+            self._tokens[slot].copy_(logits[0, -1:].argmax(dim=-1))
+            self._active[slot] = True
+            self._upload()
+            self._slots[slot] = _Slot(request=req, slot=slot, table=table,
+                                      n_blocks=n_blocks,
+                                      first=row, admitted_step=step_idx)
 
     def _can_admit(self, req: Request) -> bool:
         if self._active.all():
@@ -359,16 +374,20 @@ class RequestScheduler:
                 <= self.pool.allocator.free_blocks)
 
     def _retire(self, slot: int) -> None:
-        st = self._slots[slot]
-        self.pool.retire(st.table, st.n_blocks)
-        self._active[slot] = False
-        self._upload()
-        self._slots[slot] = None
-        # Park the vacant slot at length 0.  Its (discarded) work grows the
-        # length a step at a time, and every index it reaches is clipped:
-        # the K/V write and the chunk it reads back to the capacity, its
-        # page to the sink, its cache_len by the kernel.
-        self._state["length"][slot] = 0
+        with span("scheduler.retire"):
+            st = self._slots[slot]
+            self.pool.retire(st.table, st.n_blocks)
+            self._active[slot] = False
+            self._upload()
+            self._slots[slot] = None
+            # Park the vacant slot at length 0.  Its (discarded) work grows
+            # the length a step at a time, and every index it reaches is
+            # clipped: the K/V write and the chunk it reads back to the
+            # capacity, its page to the sink, its cache_len by the kernel.
+            # A Python number written into the card's tensor is a copy
+            # that waits for the card.
+            with span("scheduler.sync"):
+                self._state["length"][slot] = 0
 
     # ------------------------------------------------------------------ #
 
