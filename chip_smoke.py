@@ -59,10 +59,17 @@ Run from the root of a checkout.  Phases, each printed as it ends:
    capture's launches; the eager stream's it counts, 24 x steps_run),
    one capture over all its streams (a trace short of the count, as the
    profiler has once lost 9 of its events, is taken again, up to three
-   times), the same stream eager bit for bit equal,
-   ms a step (between CUDA events) and the decode steps' tokens/s graphed
-   and eager, the gather's device time, and slot-steps against padded
-   static batching; then 4 of the requests with
+   times), one prefill graph a prompt-length bucket and one replay an
+   admission, the same stream eager (the same padded prefill) bit for bit
+   equal, ms a step (between CUDA events) and the decode steps'
+   tokens/s graphed and eager, the gather's device time, and slot-steps
+   against padded static batching; the padded prefill's graphs at the
+   benchmark cell's capacity 1536 (all eight buckets): a stream of
+   prompts of 8-512 tokens graphed against eager bit for bit, each prompt's
+   padded prefill teacher-forced against the unpadded one (<= 1% of the
+   logits outside 3e-2, >= 90% of first tokens equal), 4 requests bit
+   for bit themselves alone, and ``[time]`` lines for an admission of 43
+   and of 512 tokens graphed and eager; then 4 of the requests with
    fp32 params, each bit for bit itself served alone through the same
    scheduler, and with the tokens of ``generate`` at B 1 (logits within
    1e-4); mamba2-370m's shorter stream runs in phase 7 (graphed, no
@@ -372,6 +379,15 @@ CB_SOLO = 4
 TRACE_ATTEMPTS = 3     # traces of the graphed stream, until one is whole
 CB_LENS = (0, 1, 63, 64, 65, 544, 640, 513)
 CB_SSM = (8, 4, (64, 256), (4, 16))
+# the padded prefill's graphs at the benchmark cell's slot capacity (512 +
+# 1024: all eight buckets, 16 to 1536): a stream over the cell's prompt
+# lengths (requests, prompts, budgets, arrivals) graphed against eager and
+# teacher-forced against the unpadded prefill, then admissions of the
+# cell's median prompt and of its longest timed both ways, each the median
+# of CB_ADMIT_REPS
+CB_CELL_CAP = 512 + 1024
+CB_CELL_STREAM = (16, (8, 512), (4, 16), 8)
+CB_ADMIT_LENS, CB_ADMIT_REPS = (43, 512), 10
 # the sequence-sharded stream (phase 15): the shard counts over [cuda:0] * D,
 # the capacity (phase 5b's requests fit; 1024 splits into 4 shards of two
 # 128-key blocks), each row's position in the op-level check (either side
@@ -1620,6 +1636,124 @@ def per_row_kernel(dev, card) -> float:
     return worst
 
 
+def admission_ms(sched, req) -> float:
+    """The median host wall of ``CB_ADMIT_REPS`` admissions of ``req`` into
+    the vacant scheduler ``sched``, each from an idle card until its work
+    is done, each followed by the request's retirement (untimed)."""
+    ts = []
+    for _ in range(CB_ADMIT_REPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        sched._admit(req, 0, 0)
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t) * 1e3)
+        sched._retire(0)
+    return statistics.median(ts)
+
+
+def cb_prefill_check(engine, dev, card) -> dict:
+    """The padded prefill's CUDA graphs at the benchmark cell's slot
+    capacity (``CB_CELL_CAP``, all eight buckets), bf16 at full width: a
+    stream over the cell's prompt lengths through the scheduler with the
+    graphs and through ``graph=False`` (the same padded prefill, eagerly),
+    bit for bit equal; each prompt's first token and logits
+    teacher-forced, the padded graph's against the unpadded prefill (the
+    dense gate: at most ``LOGITS_OUTSIDE_MAX`` of the logits outside
+    ``LOGITS_TOL``, at least ``AGREE_MIN`` of the first tokens equal); 4
+    requests each bit for bit itself alone; one capture a bucket and one
+    replay an admission; then ``[time]`` lines for an admission of ``CB_ADMIT_LENS`` tokens graphed
+    and eager.  Returns the numbers."""
+    import dataclasses
+
+    from repro_torch.serving.scheduler import (
+        Request,
+        RequestScheduler,
+        prefill_buckets,
+    )
+
+    cfg = engine.cfg
+    layout = engine.cache_layout(CB_CELL_CAP)
+    cap = layout.padded_len(CB_CELL_CAP)
+    buckets = prefill_buckets(cap)
+    n, prompts, budgets, arrivals = CB_CELL_STREAM
+    reqs = cb_requests(n, prompts, budgets, arrivals, cfg.vocab_size, SEED + 3)
+
+    def scheduler(graph):
+        return RequestScheduler(engine.model, engine.params, CB_SLOTS, cap,
+                                layout=layout, device=dev, graph=graph)
+
+    t = time.perf_counter()
+    graphed = scheduler(True)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t
+    check(graphed.captures == 1
+          and graphed.prefill_captures == len(buckets),
+          f"{graphed.prefill_captures} prefill graphs for buckets {buckets}, "
+          f"{graphed.captures} step graphs")
+    res_g, wall_g, _ = drive(graphed, reqs)
+    check(graphed.prefill_replays == len(reqs),
+          f"{graphed.prefill_replays} prefill replays for {len(reqs)} admissions")
+    eager = scheduler(False)
+    res_e, wall_e, _ = drive(eager, reqs)
+    check(eager.prefill_captures == eager.prefill_replays == 0,
+          "the eager scheduler captured or replayed a prefill graph")
+    same_results(res_g, res_e, "padded prefill graph vs eager")
+    for r in reqs[:CB_SOLO]:
+        solo = {x.rid: x for x in graphed.run([dataclasses.replace(r, arrival=0)])}
+        same_results({r.rid: res_g[r.rid]}, solo, "padded stream vs solo")
+    check(graphed.prefill_replays == len(reqs) + CB_SOLO,
+          f"{graphed.prefill_replays} replays, want {len(reqs) + CB_SOLO}")
+
+    outside = worst = 0.0
+    agree = 0
+    for r in reqs:
+        lg = graphed._prefill(r)[0].clone()
+        batch = {"tokens": torch.as_tensor(np.asarray(r.prompt, np.int64)[None],
+                                           device=dev)}
+        le = engine.model.prefill(engine.params, batch, cap)[0]
+        d = (lg - le).abs()
+        bound = LOGITS_TOL["atol"] + LOGITS_TOL["rtol"] * le.abs()
+        outside = max(outside, (d > bound).float().mean().item())
+        worst = max(worst, d.max().item())
+        agree += int(torch.equal(lg.argmax(-1), le.argmax(-1)))
+    check(outside <= LOGITS_OUTSIDE_MAX,
+          f"{outside:.3%} of a prompt's logits differ between the padded "
+          f"graph and the unpadded prefill by more than rtol=atol=3e-2")
+    check(agree >= AGREE_MIN * len(reqs),
+          f"first tokens equal in only {agree} of {len(reqs)} prompts")
+    tokens = sum(r.max_new_tokens for r in reqs)
+    log(f"[stream] padded prefill at capacity {cap} (buckets {buckets}): "
+        f"{len(reqs)} requests, prompts {[len(r.prompt) for r in reqs]}, "
+        f"budgets {[r.max_new_tokens for r in reqs]}; scheduler built, "
+        f"{graphed.prefill_captures} prefill graphs and 1 step graph "
+        f"captured in {t_build:.2f} s; prefill replays {graphed.prefill_replays}"
+        f" = {len(reqs)} admissions + {CB_SOLO} solo; teacher-forced prefill, "
+        f"graph vs unpadded eager: max |logits diff| {worst:.3e}, at most "
+        f"{outside:.4%} outside rtol=atol=3e-2, first tokens equal "
+        f"{agree}/{len(reqs)}; graph and eager streams bit for bit equal; "
+        f"{CB_SOLO} requests bit for bit themselves alone; stream "
+        f"wall graph {wall_g:.3f} s ({tokens / wall_g:.1f} tokens/s), eager "
+        f"{wall_e:.3f} s ({tokens / wall_e:.1f} tokens/s), on {card}")
+
+    out = dict(capacity=cap, buckets=buckets, build_s=t_build,
+               logits_max_diff=worst, logits_outside=outside,
+               first_tokens_equal=agree,
+               wall_s_graph=wall_g, wall_s_eager=wall_e)
+    rng = np.random.default_rng(SEED + 4)
+    for S in CB_ADMIT_LENS:
+        req = Request(rid=0, prompt=rng.integers(0, cfg.vocab_size, S)
+                      .astype(np.int32), max_new_tokens=1)
+        ms_g, ms_e = admission_ms(graphed, req), admission_ms(eager, req)
+        log(f"[time] admission of a {S}-token prompt (prefill at bucket "
+            f"{[b for b in buckets if b >= S][0]}, pages, uploads), host wall "
+            f"from an idle card to done, median of {CB_ADMIT_REPS}: graphed "
+            f"{ms_g:.3f} ms, eager {ms_e:.3f} ms ({ms_e / ms_g:.2f}x), on {card}")
+        out[f"admit_ms_{S}"] = dict(graph=ms_g, eager=ms_e)
+    del graphed, eager
+    torch.cuda.empty_cache()
+    return out
+
+
 def cb_phase(dev, peaks, card):
     """Continuous batching at internlm2-1.8b's full width (24 layers, bf16
     params from seed 0, ``torch-splitk``): the per-row decode kernel, then
@@ -1634,7 +1768,11 @@ def cb_phase(dev, peaks, card):
     from repro_torch.configs import get_config
     from repro_torch.models import transformer
     from repro_torch.serving.engine import ServingEngine
-    from repro_torch.serving.scheduler import WARMUP_STEPS, RequestScheduler
+    from repro_torch.serving.scheduler import (
+        WARMUP_STEPS,
+        RequestScheduler,
+        prefill_buckets,
+    )
 
     err = per_row_kernel(dev, card)
     cfg = get_config(ARCH)
@@ -1711,6 +1849,12 @@ def cb_phase(dev, peaks, card):
     same_results(res_g, res_e, "graph vs eager")
     check(eager.steps_run == steps and eager.captures == 0, "eager steps differ")
     check(sched.captures == 1, f"{sched.captures} captures over {streams} streams")
+    n_buckets = len(prefill_buckets(cap))
+    check(sched.prefill_captures == n_buckets
+          and sched.prefill_replays == streams * len(reqs),
+          f"prefill graphs: {sched.prefill_captures} captured (want "
+          f"{n_buckets}), {sched.prefill_replays} replays over {streams} "
+          f"streams of {len(reqs)} admissions")
     tokens = sum(r.max_new_tokens for r in reqs)
     check(sched.tokens_emitted == streams * tokens, "tokens emitted != the budgets")
     static = static_slot_steps(reqs, CB_SLOTS)
@@ -1725,8 +1869,11 @@ def cb_phase(dev, peaks, card):
         f"launches: {built['decode_attention']} building the graph "
         f"({WARMUP_STEPS} warm-up steps and the capture), "
         f"{launches['decode_attention']} on the eager stream; captures "
-        f"{sched.captures} (over {streams} streams); graph and eager tokens and "
-        f"final logits bit for bit equal")
+        f"{sched.captures} (over {streams} streams), prefill graphs "
+        f"{sched.prefill_captures} (one a bucket of {prefill_buckets(cap)}), "
+        f"{sched.prefill_replays} replays = {streams} x {len(reqs)} "
+        f"admissions; graph and eager tokens and final logits bit for bit "
+        f"equal")
     log(f"[stream] ms a step (median between CUDA events): graph {med_g:.3f}, "
         f"eager {med_e:.3f} ({med_e / med_g:.2f}x); decode steps alone: "
         f"graph {tokens / sum(ms_g) * 1e3:.1f} tokens/s, eager "
@@ -1745,6 +1892,8 @@ def cb_phase(dev, peaks, card):
                    gather_device_ms=g_dev, slot_steps=steps * CB_SLOTS,
                    static_slot_steps=static)
     del sched, eager, pool, gather
+    torch.cuda.empty_cache()
+    summary["prefill"] = cb_prefill_check(engine, dev, card)
 
     # fp32 copies of the params: CB_SOLO requests against each alone
     # through the same scheduler (bit for bit) and generate at B 1
@@ -1771,6 +1920,8 @@ def cb_phase(dev, peaks, card):
         worst = max(worst, float(np.abs(stream[r.rid].final_logits
                                         - g.prefill_logits[0]).max()))
     check(s32.captures == 1, f"{s32.captures} captures over {1 + CB_SOLO} streams")
+    check(s32.prefill_replays == 2 * len(sub),
+          f"{s32.prefill_replays} prefill replays, want {2 * len(sub)}")
     log(f"[stream] fp32 params, requests {[r.rid for r in sub]} (prompts "
         f"{[len(r.prompt) for r in sub]}, budgets "
         f"{[r.max_new_tokens for r in sub]}): each bit for bit the same "

@@ -51,6 +51,14 @@ class ModelApi:
     cache_seq_axes: Callable[[Dict[str, Any]], Any]
     # params -> {reference leaf path: RefLeaf} (``models/param_tree.py``)
     ref_leaves: Callable[[nn.Module], Dict[Tuple[str, ...], Any]]
+    # prefill takes ``n_valid`` (a prompt padded at its end, n positions
+    # real) and pads exactly: each real position's result depends only on
+    # the positions before it (causal attention, position-wise ops).  True
+    # for ``transformer.prefill`` (dense, vlm); the moe family routes by a
+    # capacity that counts every token, the recurrent families (ssm,
+    # hybrid) carry their state through every position, and the encdec
+    # family's prefill has not been examined, so they keep the unpadded one
+    prefill_pads: bool = False
 
 
 def get_model(cfg: ModelConfig, attn_backend=None) -> ModelApi:
@@ -133,13 +141,14 @@ def get_model(cfg: ModelConfig, attn_backend=None) -> ModelApi:
         loss_fn=lambda p, b: transformer.loss_fn(p, b, cfg),
         forward=lambda p, b: transformer.forward(p, b["tokens"], cfg,
                                                  extra_embeds=extra(b)),
-        prefill=lambda p, b, max_len: transformer.prefill(
+        prefill=lambda p, b, max_len, n_valid=None: transformer.prefill(
             p, b["tokens"], cfg, max_len, extra_embeds=extra(b),
-            layout=layout(max_len)),
+            layout=layout(max_len), n_valid=n_valid),
         decode_step=lambda p, t, c, **kw: transformer.decode_step(
             p, t, c, cfg, attn_backend=attn, **kw),
         cache_seq_axes=transformer.cache_seq_axes,
         ref_leaves=transformer.ref_leaves,
+        prefill_pads=True,
     )
 
 

@@ -246,13 +246,23 @@ def loss_fn(params: Transformer, batch: Mapping[str, torch.Tensor],
 
 def prefill_layers(blocks, x: torch.Tensor, cfg: ModelConfig, max_len: int,
                    layout: KVCacheLayout, ffn: Callable, cache_dtype=None,
+                   n_valid: Optional[torch.Tensor] = None,
                    ) -> Tuple[torch.Tensor, Cache]:
     """Run the prompt's hidden states ``x [B, S, d]`` through ``blocks``;
     ``ffn(block, x)`` is the block's feed-forward half.  Returns the hidden
     states and the blocks' ``[L, B, KV, S_cap, D]`` KV cache in
     ``cache_dtype`` (default ``x.dtype``), ``length`` S.  Each block's
     halves run under the spans ``model.prefill.attn`` (its K/V write
-    included) and ``model.prefill.ffn`` (``core/spans.py``)."""
+    included) and ``model.prefill.ffn`` (``core/spans.py``).
+
+    ``n_valid``, an int32 scalar on ``x``'s device, is a padded prompt's
+    real length n <= S, which the cache's ``length`` copies (no host
+    read).  Padding after the last real position is exact for this math:
+    attention is causal and every other op works position by position, so
+    the first n positions' hidden states, K and V come from the same ops
+    at the same dtypes as an unpadded prefill of n positions (they differ
+    only by the sums' order at other shapes); the padded positions' K and
+    V land at positions >= n, which a decode step masks out exactly."""
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     cache = init_attn_cache(len(blocks), B, max_len, cfg.eff_kv_heads,
@@ -264,7 +274,10 @@ def prefill_layers(blocks, x: torch.Tensor, cfg: ModelConfig, max_len: int,
             update_layer_kv(cache, i, k, v, 0)
         with span("model.prefill.ffn"):
             x = ffn(block, x)
-    cache["length"].fill_(S)
+    if n_valid is None:
+        cache["length"].fill_(S)
+    else:
+        cache["length"].copy_(n_valid)
     return x, cache
 
 
@@ -275,15 +288,26 @@ def _dense_ffn(cfg: ModelConfig) -> Callable:
 def prefill(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
             max_len: int, extra_embeds: Optional[torch.Tensor] = None,
             layout: KVCacheLayout = KVCacheLayout(),
+            n_valid: Optional[torch.Tensor] = None,
             ) -> Tuple[torch.Tensor, Cache]:
     """Run the prompt (after ``extra_embeds``, where given); build the [L,
     B, KV, S, D] KV cache with capacity ``layout.padded_len(max_len)`` (see
     ``models.kvcache``).  Returns the last position's logits [B, 1, V]
-    (fp32) and the cache."""
+    (fp32) and the cache.
+
+    ``n_valid`` (an int32 scalar on the device): the prompt is padded at
+    its end and only its first n positions, ``extra_embeds`` counted, are
+    real; the logits are then position n - 1's and the cache's ``length``
+    is n (:func:`prefill_layers`), all without a host read, so that a CUDA
+    graph of one padded shape serves every n up to it."""
     x = embed_with_extra(params.embed, tokens, extra_embeds)
     x, cache = prefill_layers(params.blocks, x, cfg, max_len, layout,
-                              _dense_ffn(cfg))
-    return final_logits(x[:, -1:], params.ln_f, params.head, cfg), cache
+                              _dense_ffn(cfg), n_valid=n_valid)
+    if n_valid is None:
+        last = x[:, -1:]
+    else:
+        last = x.index_select(1, (n_valid.long() - 1).reshape(1))
+    return final_logits(last, params.ln_f, params.head, cfg), cache
 
 
 def _decode_attn(attn, q, k, v, k_cache, v_cache, at, cache_len,

@@ -21,6 +21,23 @@ stream instead, with admission control:
   each row as its own token group;
 * requests admitted mid-decode as slots free up, retired the step their
   token budget completes; admission order is FIFO over (arrival, rid);
+* each admission's B = 1 prefill, for a family whose prefill pads
+  (``ModelApi.prefill_pads``: dense, vlm), run at the prompt's length
+  bucket (:func:`prefill_buckets`: powers of two from 16, then the slot
+  capacity) with the prompt padded at its end; where the step is graphed,
+  from a CUDA graph captured per bucket at construction beside the
+  step's, else the same padded prefill eagerly.  An eager prefill is a
+  chain of small launches, one op at a time, so the host, not the card,
+  sets its pace; a replay is one launch.  The graph reads a static token
+  buffer, the real length n as a device scalar (and, for vlm, the
+  frontend rows) and returns the logits of position n - 1 and a cache of
+  length n (``transformer.prefill(..., n_valid=)``), so one graph serves
+  every prompt of its bucket.  Padding is exact: the padded positions
+  come after every real one, so causal attention keeps them out of every
+  real position's result, and their K and V land in the slot's pages at
+  positions >= its length, which the decode step masks to an exact zero
+  and overwrites one a step.  The moe, ssm, hybrid and encdec families
+  keep the unpadded eager prefill;
 * over a mesh (``mesh``, ``axis_name``), the sequence-sharded step: the
   pool gathers the paged leaves shard-major, the S axis split into one
   slice a device along ``axis_name`` (each a contiguous block, no copy on
@@ -47,10 +64,11 @@ Bitwise contract (``tests/test_torch_cb_*.py``): a request
 served in a mixed stream gives the same tokens and final-step logits, bit
 for bit, as the same request served alone through a scheduler with the
 same ``num_slots`` and slot capacity: the step's products run at M =
-``num_slots`` either way, a row never reads another, and masked positions
-contribute exactly +0.0 whatever stale values reused pages hold (see
-``kv_pool.py``).  Against ``generate`` at B = 1, whose products run at
-M = 1, the tokens are identical and the logits agree within 1e-4.  The
+``num_slots`` either way, a prompt prefills at the same bucket either way,
+a row never reads another, and masked positions contribute exactly +0.0
+whatever stale values reused pages hold (see ``kv_pool.py``).  Against
+``generate`` at B = 1, whose products run at M = 1 and whose prefill is
+unpadded, the tokens are identical and the logits agree within 1e-4.  The
 sharded step at D = 1 is bit for bit the unsharded one (the merge of one
 partial is exact); at D > 1 the partial sums are reordered, so tokens
 are held equal and logits within 2e-2 (``tests/test_torch_sharded_*``).
@@ -77,9 +95,35 @@ from repro_torch.serving.kv_pool import (
     tree_map,
 )
 
-__all__ = ["Request", "RequestResult", "RequestScheduler"]
+__all__ = ["Request", "RequestResult", "RequestScheduler",
+           "prefill_buckets", "prefill_bucket"]
 
 WARMUP_STEPS = 2  # eager steps on the capture stream before the capture
+PREFILL_BUCKET_MIN = 16  # the smallest prompt-length bucket
+
+
+def prefill_buckets(capacity: int, frontend: int = 0) -> List[int]:
+    """The prompt-length buckets of the padded prefill in a slot of
+    ``capacity``: the powers of two from ``PREFILL_BUCKET_MIN`` below the
+    capacity, then the capacity.  A prompt's length counts its
+    ``frontend`` rows (vlm's image embeddings before its tokens), so a
+    bucket of ``frontend`` or fewer positions holds no prompt and is left
+    out."""
+    out, b = [], PREFILL_BUCKET_MIN
+    while b < capacity:
+        if b > frontend:
+            out.append(b)
+        b *= 2
+    return out + [int(capacity)]
+
+
+def prefill_bucket(n: int, buckets: Sequence[int]) -> int:
+    """The smallest of ``buckets`` (ascending) that holds ``n`` positions."""
+    for b in buckets:
+        if b >= n:
+            return b
+    raise ValueError(f"a prompt of {n} positions exceeds the largest "
+                     f"bucket, {buckets[-1]}")
 
 
 @dataclasses.dataclass
@@ -134,6 +178,11 @@ class RequestScheduler:
     ``graph``: capture the step in a CUDA graph (default: on CUDA, where
     every entry of the mesh, if any, is ``device``); a failed capture
     raises.  ``graph=False`` runs the same step eagerly.
+
+    A family whose prefill pads (``ModelApi.prefill_pads``) prefills each
+    admitted prompt padded to its bucket (:func:`prefill_buckets`), from a
+    CUDA graph captured per bucket where ``graph`` is on, eagerly where it
+    is off: the same ops either way, so graph = eager bit for bit.
 
     ``mesh``/``axis_name``: the sequence-sharded step over the mesh's
     devices along ``axis_name`` (:class:`repro_torch.launch.mesh.Mesh`);
@@ -230,6 +279,23 @@ class RequestScheduler:
         self.captures = 0           # CUDA graphs captured: 1 on CUDA, 0 eager
         self._graph: Optional[torch.cuda.CUDAGraph] = None
         self._graph_scratch = None  # the decode kernel's scratch the graph holds
+
+        # The padded prefill's static inputs: a prompt's tokens (each bucket
+        # reads a prefix), its real length n and, for vlm, its frontend rows
+        # in the embeddings' dtype (``embed_with_extra`` casts them to it).
+        self.prefill_captures = 0   # prefill graphs captured, one a bucket
+        self.prefill_replays = 0    # admissions served from a prefill graph
+        # bucket -> (its graph, the graph's outputs)
+        self._prefill_graphs: Dict[int, tuple] = {}
+        if model.prefill_pads:
+            self._frontend = self.model.cfg.frontend_tokens or 0
+            self._buckets = prefill_buckets(self.slot_capacity, self._frontend)
+            self._pf_tokens = torch.zeros((1, self.slot_capacity),
+                                          dtype=torch.long, device=self.device)
+            self._pf_n = torch.zeros((), dtype=torch.int32, device=self.device)
+            self._pf_extra = {
+                key: torch.zeros_like(t, dtype=params.embed.dtype)
+                for key, t in self._template_extra().items()}
         if self.graph:
             self._capture()
 
@@ -281,18 +347,53 @@ class RequestScheduler:
         self._logits.copy_(logits[:, -1])
         self._tokens.copy_(logits[:, -1:].argmax(dim=-1))
 
+    def _prefill_at(self, bucket: int):
+        """The padded prefill of ``bucket`` positions over the static
+        inputs: the frontend rows, the token buffer's first ``bucket`` less
+        the frontend rows, the real length n.  Returns the logits of
+        position n - 1 and the cache, of length n.  Every input is
+        rewritten for each admission: ``run`` refuses a request without
+        the family's frontend rows."""
+        batch = {"tokens": self._pf_tokens[:, :bucket - self._frontend],
+                 **self._pf_extra}
+        return self.model.prefill(self.params, batch, self.slot_capacity,
+                                  n_valid=self._pf_n)
+
+    def _capture_prefills(self, stream) -> None:
+        """Capture the padded prefill of every bucket on ``stream``, each
+        after an eager warm-up there, from the largest down into one memory
+        pool: a graph's temporaries reuse what the larger ones freed, and
+        each keeps only its outputs (the logits and a cache at the slot
+        capacity).  So a replay may overwrite another bucket's outputs:
+        replays run in stream order, and each admission has paged in its
+        outputs before the next replay."""
+        pool = torch.cuda.graph_pool_handle()
+        for bucket in reversed(self._buckets):
+            with torch.cuda.stream(stream):
+                self._pf_n.fill_(bucket)
+                self._prefill_at(bucket)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=pool, stream=stream):
+                out = self._prefill_at(bucket)
+            self._prefill_graphs[bucket] = (graph, out)
+            self.prefill_captures += 1
+
     def _capture(self) -> None:
-        """Warm the step up on a side stream (the decode wrapper's split
-        plan and its per-stream scratch are made there, and the kernel
-        leaves its tickets at zero), then capture it once on that stream.
-        Every slot is vacant, so the warm-up only writes what admission
-        overwrites.  The graph holds the addresses of the scratch the
-        wrapper kept for that stream, so the scheduler takes it over
-        (``decode_ops.release_scratch``): a later stream that gets the same
-        handle from torch's pool gets scratch of its own, and the graph's
-        lives as long as the graph."""
+        """Capture the padded prefill's graphs, where the family pads
+        (:meth:`_capture_prefills`), then warm the step up on the same side
+        stream (the decode wrapper's split plan and its per-stream scratch
+        are made there, and the kernel leaves its tickets at zero) and
+        capture it once on that stream.  Every slot is vacant, so the
+        warm-up only writes what admission overwrites.  The graph holds the
+        addresses of the scratch the wrapper kept for that stream, so the
+        scheduler takes it over (``decode_ops.release_scratch``): a later
+        stream that gets the same handle from torch's pool gets scratch of
+        its own, and the graph's lives as long as the graph.  Nothing is
+        captured later: a stream's admissions and steps only replay."""
         stream = torch.cuda.Stream(self.device)
         stream.wait_stream(torch.cuda.current_stream(self.device))
+        if self.model.prefill_pads:
+            self._capture_prefills(stream)
         with torch.cuda.stream(stream):
             for _ in range(WARMUP_STEPS):
                 self._step_body()
@@ -335,18 +436,55 @@ class RequestScheduler:
         with span("scheduler.sync"):
             self._active_dev.copy_(torch.from_numpy(self._active))
 
-    def _admit(self, req: Request, step_idx: int, row: int) -> None:
-        with span("scheduler.admit"):
-            slot = int(np.flatnonzero(~self._active)[0])
+    def _prefill(self, req: Request):
+        """The admitted prompt's B = 1 prefill at the slot capacity: the
+        logits of its last position and its cache.  The prompt's upload
+        waits for the card under ``scheduler.sync``; the prefill runs under
+        ``model.prefill``.  Padded (``ModelApi.prefill_pads``): the prompt
+        goes into the static token buffer, the rest of its bucket is zeroed
+        and n is set by a fill on the card (no host wait), then the
+        bucket's graph replays (its outputs are the graph's own tensors,
+        valid until the next replay of any bucket) or, without graphs, the
+        same padded prefill runs eagerly.  A replay records no
+        ``model.prefill.attn`` or ``.ffn`` span: ``model.prefill`` times
+        the input writes and the replay's launch."""
+        tokens = np.asarray(req.prompt, np.int64).reshape(1, -1)
+        if not self.model.prefill_pads:
             with span("scheduler.sync"):
-                prompt = torch.as_tensor(
-                    np.asarray(req.prompt, np.int64).reshape(1, -1),
-                    device=self.device)
+                prompt = torch.as_tensor(tokens, device=self.device)
                 batch = {"tokens": prompt,
                          **extra_tensors(req.extra, self.device)}
             with span("model.prefill"):
-                logits, cache = self.model.prefill(self.params, batch,
-                                                   self.slot_capacity)
+                return self.model.prefill(self.params, batch,
+                                          self.slot_capacity)
+        S, F = tokens.shape[1], self._frontend
+        bucket = prefill_bucket(S + F, self._buckets)
+        with span("scheduler.sync"):
+            self._pf_tokens[:, :S].copy_(torch.from_numpy(tokens))
+            # the family's frontend rows (``run`` has checked that they are
+            # there); any other input is ignored, as the unpadded prefill does
+            extra = extra_tensors(req.extra, self.device)
+            for key, rows in self._pf_extra.items():
+                rows.copy_(extra[key])
+        with span("model.prefill"):
+            self._pf_tokens[:, S:bucket - F].zero_()
+            self._pf_n.fill_(S + F)
+            if not self._prefill_graphs:
+                return self._prefill_at(bucket)
+            graph, out = self._prefill_graphs[bucket]
+            graph.replay()
+            self.prefill_replays += 1
+            return out
+
+    def _admit(self, req: Request, step_idx: int, row: int) -> None:
+        """Admit ``req`` to the first vacant slot: its prefill
+        (:meth:`_prefill`, from a graph of its bucket where the scheduler
+        graphs and the family pads), its K and V paged into the pool, its
+        slot-resident state, first token, block table and the active mask
+        written in place."""
+        with span("scheduler.admit"):
+            slot = int(np.flatnonzero(~self._active)[0])
+            logits, cache = self._prefill(req)
             need = self._need(req)
             n_blocks = (self.layout.blocks_for(need)
                         if self.pool.table_width else 0)
@@ -396,11 +534,19 @@ class RequestScheduler:
             ) -> List[RequestResult]:
         """Serve the whole stream; returns results ordered by completion.
         A stream that has not drained within its step budget (every token
-        and arrival, plus slack) raises.  ``around_step``, where given, is
-        called once a decode step with the step's launch, which it must
-        call once: a caller that times or profiles single steps wraps it."""
+        and arrival, plus slack) raises, and so, before any admission, does
+        a request without the frontend input its family's prefill takes
+        (vlm's ``extra_embeds``, encdec's ``frames``).  ``around_step``,
+        where given, is called once a decode step with the step's launch,
+        which it must call once: a caller that times or profiles single
+        steps wraps it."""
         queue = sorted(requests, key=lambda r: (r.arrival, r.rid))
+        frontend = FRONTEND_INPUTS.get(self.model.cfg.family)
         for r in queue:
+            if frontend is not None and frontend not in (r.extra or {}):
+                raise ValueError(
+                    f"request {r.rid} has no {frontend!r}: the "
+                    f"{self.model.cfg.family} family's prefill takes it")
             if self._need(r) > self.slot_capacity:
                 raise ValueError(
                     f"request {r.rid} needs capacity {self._need(r)} > "
