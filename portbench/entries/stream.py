@@ -106,14 +106,13 @@ def port_config(m: Dict[str, Any]):
 
 
 def _module(cfg, m: Dict[str, Any], device):
-    """The port's parameter module, uninitialized, in the file's dtype."""
-    from repro_torch.models import transformer
+    """The port's parameter module of ``cfg.family``, the class its
+    registry builds, uninitialized, in the file's dtype."""
+    from repro_torch.models import registry
 
-    classes = {"dense": transformer.Transformer}
-    if cfg.family not in classes:
-        raise ValueError(f"the stream entry has no module for {cfg.family!r}")
+    module_class = type(registry.abstract_params(cfg))
     dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}[m["param_dtype"]]
-    return classes[cfg.family](cfg, dtype=dtype, device=device)
+    return module_class(cfg, dtype=dtype, device=device)
 
 
 def _serve(sched, requests, clock: _Clock, hook=None):

@@ -9,13 +9,17 @@ position's logits) and once a decode row.  They do not count what a kernel
 happens to read or compute beyond that: padding, a dispatch buffer's
 empty slots, the gather of whole-capacity caches, vacant slots.
 
-A family without counts here (so far only the dense decoder has them)
-raises: a configuration of another family brings its counts with it.
+What depends on the model's family, the parameters of the products a
+token runs through, comes from ``families/<family>.py``
+(``body_params_per_token``); the rest holds for every family with
+attention in each of its ``n_layers`` layers.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict
+
+from pbcore import spec
 
 _DTYPE_BYTES = {"bfloat16": 2, "float16": 2, "float32": 4}
 
@@ -31,12 +35,8 @@ def _attn_params(m: Dict[str, Any]) -> int:
 
 def body_params_per_token(m: Dict[str, Any]) -> int:
     """Parameters of the products a token runs through, the unembedding
-    left out."""
-    d, L = m["d_model"], m["n_layers"]
-    attn = _attn_params(m)
-    if m["family"] == "dense":
-        return L * (attn + 3 * d * m["d_ff"])
-    raise ValueError(f"no counts for family {m['family']!r}")
+    left out: the family's count."""
+    return spec.family(m["family"]).body_params_per_token(m)
 
 
 def head_params(m: Dict[str, Any]) -> int:

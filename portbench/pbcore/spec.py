@@ -6,8 +6,11 @@ a file of its own under ``portbench/``, named after it:
 
 * a configuration: ``configs/<config>.json`` (the ``file`` its entry
   names), with its ``entry`` (``entries/<entry>.py``, the path a run
-  drives) and its ``reference`` (``reference/<reference>.py``, the plain
-  model);
+  drives), its ``reference`` (``reference/<reference>.py``, the plain
+  model) and its ``model.family`` (``families/<family>.py``: the weight
+  schema's blocks, ``block_kinds(m)``, and the parameters a token runs
+  through, ``body_params_per_token(m)``; the program's module for the
+  family comes from the port's own registry);
 * a traffic mix: ``traffic/<traffic>.json``, parameters that the one
   generator (``pbcore/traffic.py``) reads;
 * a cell: ``cells/<workload>.json``, the limits of its comparison;
@@ -72,7 +75,10 @@ def _under(root: str, rel: str) -> str:
 def load_cell(root: str, name: str, bench_file: str = "BENCHMARK.json",
               bench_dir: str = HERE) -> Cell:
     """The cell ``name`` of ``root/bench_file`` with every file it names
-    read; raises where a file is missing or a name is unknown."""
+    read; raises where a file is missing or a name is unknown.
+    ``bench_dir`` holds the cell's data files (traffic and limits); its
+    code (entry, reference, family) is imported from the ``portbench/``
+    first on ``sys.path``, so a copy of the benchmark goes there."""
     bench = _read_json(os.path.join(root, bench_file))
     cells = {w["name"]: w for w in bench["workloads"]}
     if name not in cells:
@@ -84,6 +90,11 @@ def load_cell(root: str, name: str, bench_file: str = "BENCHMARK.json",
     if config.get("name") != conf["name"]:
         raise ValueError(f"{conf['file']} names {config.get('name')!r}, "
                          f"not {conf['name']!r}")
+    fam = config["model"]["family"]
+    path = family_file(fam)
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"{conf['file']}: no file for family "
+                                f"{fam!r} at {path}")
     traffic = _read_json(os.path.join(bench_dir, "traffic",
                                       w["traffic"] + ".json"))
     limits = _read_json(os.path.join(bench_dir, "cells", name + ".json"))
@@ -121,3 +132,16 @@ def entry(name: str):
 def reference(name: str):
     """``reference/<name>.py``: a configuration's plain model."""
     return importlib.import_module(f"reference.{name}")
+
+
+def family_file(name: str) -> str:
+    """Where ``families/<name>.py`` lies: in the ``families`` package on
+    the import path, the one ``family`` imports from."""
+    families = importlib.import_module("families")
+    return os.path.join(os.path.dirname(families.__file__), name + ".py")
+
+
+def family(name: str):
+    """``families/<name>.py``: a model family's ``block_kinds(m)`` and
+    ``body_params_per_token(m)``."""
+    return importlib.import_module(f"families.{name}")

@@ -23,6 +23,8 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from pbcore import spec
+
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
@@ -45,31 +47,14 @@ class Kind:
         return max(1, self.layers) * math.prod(self.shape)
 
 
-def _block_kinds(m: Dict[str, Any], prefix: str, n: int) -> List[Kind]:
-    d, H, KV, Dh = m["d_model"], m["n_heads"], m["n_kv_heads"], m["d_head"]
-    dt = m["param_dtype"]
-    out = [
-        Kind(prefix, "ln_attn", n, (d,), dt, "ones"),
-        Kind(prefix, "attn.wq", n, (d, H, Dh), dt, "normal", d),
-        Kind(prefix, "attn.wk", n, (d, KV, Dh), dt, "normal", d),
-        Kind(prefix, "attn.wv", n, (d, KV, Dh), dt, "normal", d),
-        Kind(prefix, "attn.wo", n, (H, Dh, d), dt, "normal", H * Dh),
-        Kind(prefix, "ln_mlp", n, (d,), dt, "ones"),
-    ]
-    f = m["d_ff"]
-    return out + [Kind(prefix, "mlp.wi_gate", n, (d, f), dt, "normal", d),
-                  Kind(prefix, "mlp.wi_up", n, (d, f), dt, "normal", d),
-                  Kind(prefix, "mlp.wo", n, (f, d), dt, "normal", f)]
-
-
 def schema(m: Dict[str, Any]) -> List[Kind]:
     """Every kind of leaf of the configuration's model, in a fixed order
-    (the order seeds them)."""
+    (the order seeds them): the embedding, the blocks of the model's
+    family (``families/<family>.py``), the final norm and, untied, the
+    unembedding."""
     V, d, dt = m["padded_vocab"], m["d_model"], m["param_dtype"]
     kinds = [Kind("", "embed", 0, (V, d), dt, "embed")]
-    if m["family"] != "dense":
-        raise ValueError(f"no weight schema for family {m['family']!r}")
-    kinds += _block_kinds(m, "blocks", m["n_layers"])
+    kinds += spec.family(m["family"]).block_kinds(m)
     kinds += [Kind("", "ln_f", 0, (d,), dt, "ones")]
     if not m.get("tie_embeddings", False):
         kinds += [Kind("", "unembed", 0, (V, d), dt, "embed")]
