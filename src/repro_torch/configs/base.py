@@ -36,8 +36,15 @@ class ModelConfig:
     n_shared_experts: int = 0
     experts_per_token: int = 0
     moe_d_ff: int = 0
-    moe_capacity_factor: float = 1.25
+    # each expert takes at most ceil(T·k/E)·factor of a token group's T
+    # tokens, the rest drop; None: no capacity, no token ever drops
+    moe_capacity_factor: Optional[float] = 1.25
     first_dense_layers: int = 0       # deepseek-moe keeps layer 0 dense
+    # True: the top-k weights are a softmax over the k chosen logits (the
+    # reference's); False: a softmax over all E, the top k used as they
+    # are (HF ``norm_topk_prob: false``, deepseek-moe-16b as published)
+    moe_norm_topk_prob: bool = True
+    moe_cache_dtype: str = "float32"  # the moe decode cache's dtype
     # --- SSM (mamba2 / SSD) ---
     ssm_state: int = 0
     ssm_heads: int = 0

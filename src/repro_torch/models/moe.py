@@ -1,18 +1,31 @@
 """Mixture-of-Experts decoder (kimi-k2-1t, deepseek-moe-16b).
 
-Routing: top-k with the gate weights normalized over the selected experts
-(DeepSeek-style), shared experts always active, and dense first layers
-(``cfg.first_dense_layers``).
+Routing: the router's fp32 logits over all E experts, the top k chosen by
+a stable descending sort (the lower expert id first among equal logits),
+shared experts always active, and dense first layers
+(``cfg.first_dense_layers``).  Two weightings of the k chosen experts:
+
+* ``cfg.moe_norm_topk_prob`` True (the default, the reference's): a
+  softmax over the k chosen logits, i.e. the top k of a softmax over all E
+  renormalised to sum to one;
+* False (HF ``norm_topk_prob: false``, deepseek-moe-16b as published,
+  arXiv:2401.06066 and ``deepseek-ai/deepseek-moe-16b-base``'s
+  ``config.json``: ``scoring_func`` softmax, ``topk_method`` greedy): a
+  softmax over all E logits in fp32, the k chosen probabilities used as
+  they are.
 
 Dispatch is grouped, sort-based and of static capacity, as in the
 reference: the tokens split into ``dp_groups`` groups, each expert takes at
 most ``C = int(ceil(T_group·k/E) · capacity_factor)`` tokens of a group
 (the rest drop), and the experts run as one batched product over the
-``[E, G·C, d]`` dispatch buffer.  Which tokens share a group decides which
-compete for capacity: ``generate`` routes its whole batch as one group,
-and a decode step with one cache length a row (the continuous-batching
-step) routes each row as its own, as the reference's step mapped over
-slots does.
+``[E, G·C, d]`` dispatch buffer.  ``cfg.moe_capacity_factor`` None means no
+capacity: C = T_group, which holds every assignment (a token's k experts
+are distinct), so no token drops, as the published model serves.  Which
+tokens share a group decides which compete for capacity: ``generate``
+routes its whole batch as one group, and a decode step with one cache
+length a row (the continuous-batching step) routes each row as its own,
+as the reference's step mapped over slots does (C = 1 there, and k
+distinct experts never overflow it: decode drops nothing at any factor).
 
 Everything that depends on the data is computed on the device from shapes
 alone (no ``.item()``, ``nonzero`` or boolean-mask indexing), so the
@@ -20,14 +33,23 @@ continuous-batching step that runs it can be captured in a CUDA graph.
 The combine adds each token's expert outputs in a fixed order, expert id
 ascending (the order of the reference's scatter-add over the ``[E, C]``
 table), then the shared experts: no atomics, so a run gives the same bits
-every time.
+every time.  The layer's four parts run under the spans ``moe.route``,
+``moe.dispatch``, ``moe.experts`` and ``moe.combine``, and each prefill
+and decode step counts its routing on the device
+(``core/spans.py::tally``: assignments dropped, experts hit, the
+most-loaded expert over the mean).
 
 Parameters live in a :class:`Moe` module: ``embed``, ``dense_blocks`` and
 ``moe_blocks`` (``ModuleList``\\ s; a moe block's experts are stacked
 ``[E, d, f]`` parameters and its router is fp32), ``ln_f`` and ``unembed``.
-The decode cache is fp32 (:data:`DECODE_CACHE_DTYPE`) and holds one KV
-stack per block kind: ``{"stacks": [dense {k, v}, moe {k, v}], "length"}``,
-the reference's layout.
+The decode cache holds one KV stack per block kind: ``{"stacks": [dense
+{k, v}, moe {k, v}], "length"}``, the reference's layout, in
+``cfg.moe_cache_dtype``: fp32 by default (:data:`DECODE_CACHE_DTYPE`), as
+the reference keeps it; the published deployment caches in bf16, the
+weights' dtype.  Without a capacity the prefill pads exactly (a padded
+position's routing changes no real token's result), so the
+continuous-batching scheduler serves it from its per-bucket prefill
+graphs (``prefill(..., n_valid=)``, ``registry.ModelApi.prefill_pads``).
 """
 
 from __future__ import annotations
@@ -39,6 +61,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import spans
 from repro_torch.core.backends import KVCacheLayout, get_backend
 from repro_torch.models import layers as L
 from repro_torch.models import param_tree as PT
@@ -49,8 +72,8 @@ from repro_torch.models.kvcache import (
     seq_axis_tree,
 )
 
-__all__ = ["DECODE_CACHE_DTYPE", "MoeFfn", "Block", "Moe", "init",
-           "params_from_arrays", "params_to_arrays", "ref_leaves",
+__all__ = ["DECODE_CACHE_DTYPE", "cache_dtype", "capacity", "MoeFfn",
+           "Block", "Moe", "init", "params_from_arrays", "params_to_arrays", "ref_leaves",
            "route_topk", "moe_ffn", "MOE_EP_SHARDMAP", "set_moe_ep_shardmap",
            "moe_ffn_shardmap", "moe_ffn_dispatch", "forward", "loss_fn",
            "prefill", "decode_step", "cache_seq_axes", "slice_stage_params",
@@ -58,10 +81,30 @@ __all__ = ["DECODE_CACHE_DTYPE", "MoeFfn", "Block", "Moe", "init",
 
 ACC = L.ACC_DTYPE
 
-# The moe family decodes from an fp32 KV cache, as the reference does: the
-# router amplifies bf16 rounding of cached K and V into ~2.5e-2 logit error
-# on kimi-k2's worst rows (the reference's numerics note, moe.py:38-45).
+# The moe family decodes from an fp32 KV cache by default, as the reference
+# does: the router amplifies bf16 rounding of cached K and V into ~2.5e-2
+# logit error on kimi-k2's worst rows (the reference's numerics note,
+# moe.py:38-45).  ``cfg.moe_cache_dtype`` sets another.
 DECODE_CACHE_DTYPE = torch.float32
+_CACHE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def cache_dtype(cfg: ModelConfig) -> torch.dtype:
+    """The decode cache's dtype, ``cfg.moe_cache_dtype``."""
+    if cfg.moe_cache_dtype not in _CACHE_DTYPES:
+        raise ValueError(f"moe_cache_dtype {cfg.moe_cache_dtype!r}; known: "
+                         f"{sorted(_CACHE_DTYPES)}")
+    return _CACHE_DTYPES[cfg.moe_cache_dtype]
+
+
+def capacity(cfg: ModelConfig, group_tokens: int) -> int:
+    """Each expert's slots in a group of ``group_tokens`` tokens:
+    ``int(ceil(T·k/E) · capacity_factor)``, at least 1; with no capacity
+    (``moe_capacity_factor`` None) T, every assignment kept."""
+    if cfg.moe_capacity_factor is None:
+        return max(1, group_tokens)
+    E, k = cfg.n_experts, cfg.experts_per_token
+    return max(1, int(-(-group_tokens * k // E) * cfg.moe_capacity_factor))
 
 
 # ---------------------------------------------------------------------------
@@ -218,15 +261,19 @@ def _total_order(x: torch.Tensor) -> torch.Tensor:
     return torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
 
 
-def route_topk(logits: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``[T, E]`` → (gate weights ``[T, k]`` fp32, softmax over the k
-    selected logits; expert ids ``[T, k]``), as ``jax.lax.top_k``: a
-    stable descending sort keeps the lower expert id first among equal
-    logits (``torch.topk`` promises no order on ties), and the sort keys
-    put -0.0 below +0.0."""
+def route_topk(logits: torch.Tensor, k: int, normalize: bool = True
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``[T, E]`` → (gate weights ``[T, k]`` fp32; expert ids ``[T, k]``),
+    the ids as ``jax.lax.top_k``: a stable descending sort keeps the lower
+    expert id first among equal logits (``torch.topk`` promises no order on
+    ties), and the sort keys put -0.0 below +0.0.  The weights are a
+    softmax over the k selected logits (``normalize``, the reference's), or
+    the k selected entries of a softmax over all E, not renormalised."""
     _, idx = torch.sort(_total_order(logits), dim=-1, descending=True,
                         stable=True)
     idx = idx[..., :k]
+    if not normalize:
+        return torch.gather(torch.softmax(logits.to(ACC), dim=-1), -1, idx), idx
     vals = torch.gather(logits, -1, idx)
     return torch.softmax(vals.to(ACC), dim=-1), idx
 
@@ -263,11 +310,10 @@ def _routed_experts(router: torch.Tensor, w_gate: torch.Tensor,
                     cfg: ModelConfig, groups: int = 1, e0: int = 0):
     """The routed experts of ``x [B, S, d]``: every token routed against
     all E experts (``router [d, E]``), the tokens split into ``groups``
-    groups, each expert taking at most ``C = int(ceil(T_group·k/E) ·
-    capacity_factor)`` of a group's tokens, and the experts ``[e0, e0 +
-    E_local)`` run, whose stacked weights ``w_* [E_local, ...]`` are
-    given (all E of them for :func:`moe_ffn`, one model shard's for
-    :func:`_moe_ffn_local`).  An assignment to an expert outside the range
+    groups, each expert taking at most ``C`` (:func:`capacity`) of a
+    group's tokens, and the experts ``[e0, e0 + E_local)`` run, whose
+    stacked weights ``w_* [E_local, ...]`` are given (all E of them for
+    :func:`moe_ffn`, one model shard's for :func:`_moe_ffn_local`).  An assignment to an expert outside the range
     goes to a sentinel expert that is cut off; the stable sort ranks the
     range's assignments as the unsharded dispatch ranks them, so the same
     tokens drop.  Returns (each token's terms of the range's experts [T,
@@ -282,30 +328,47 @@ def _routed_experts(router: torch.Tensor, w_gate: torch.Tensor,
     while T % G:
         G -= 1
     Tg = T // G
-    C = max(1, int(-(-Tg * k // E) * cfg.moe_capacity_factor))
+    C = capacity(cfg, Tg)
     dev = x.device
 
-    logits = xf.to(ACC) @ router                      # [T, E] fp32
-    w, idx = route_topk(logits, k)                    # [T, k]
-    if E_local == E:                                  # every expert here
-        tables, valid = _dispatch_tables(idx.reshape(G, Tg * k), E, C)
-    else:
-        e_rel = idx - e0
-        e_flat = torch.where((e_rel >= 0) & (e_rel < E_local), e_rel,
-                             torch.full_like(e_rel, E_local))
-        tables, valid = _dispatch_tables(e_flat.reshape(G, Tg * k),
-                                         E_local + 1, C)
-        tables, valid = tables[:, :E_local], valid[:, :E_local]  # [G, El, C]
+    with spans.span("moe.route"):
+        logits = xf.to(ACC) @ router                  # [T, E] fp32
+        w, idx = route_topk(logits, k, cfg.moe_norm_topk_prob)  # [T, k]
+    with spans.span("moe.dispatch"):
+        if E_local == E:                              # every expert here
+            tables, valid = _dispatch_tables(idx.reshape(G, Tg * k), E, C)
+        else:
+            e_rel = idx - e0
+            e_flat = torch.where((e_rel >= 0) & (e_rel < E_local), e_rel,
+                                 torch.full_like(e_rel, E_local))
+            tables, valid = _dispatch_tables(e_flat.reshape(G, Tg * k),
+                                             E_local + 1, C)
+            tables, valid = tables[:, :E_local], valid[:, :E_local]  # [G, El, C]
 
-    # the token of each slot: slot (g, e, c) holds assignment
-    # g·Tg·k + tables[g, e, c], whose token is that over k
-    base = (torch.arange(G, device=dev) * (Tg * k))[:, None, None]
-    slot_token = ((tables + base) // k).transpose(0, 1).reshape(E_local, G * C)
-    xe = xf[slot_token]                               # [El, G·C, d]
-    gate = L.bmm_acc(xe, w_gate)
-    up = L.bmm_acc(xe, w_up)
-    h = (torch.nn.functional.silu(gate) * up).to(x.dtype)
-    oe = L.bmm_acc(h, w_down).reshape(E_local * G * C, d)  # fp32
+        # the token of each slot: slot (g, e, c) holds assignment
+        # g·Tg·k + tables[g, e, c], whose token is that over k
+        base = (torch.arange(G, device=dev) * (Tg * k))[:, None, None]
+        slot_token = ((tables + base) // k).transpose(0, 1).reshape(
+            E_local, G * C)
+        xe = xf[slot_token]                           # [El, G·C, d]
+    with spans.span("moe.experts"):
+        gate = L.bmm_acc(xe, w_gate)
+        up = L.bmm_acc(xe, w_up)
+        h = (torch.nn.functional.silu(gate) * up).to(x.dtype)
+        oe = L.bmm_acc(h, w_down).reshape(E_local * G * C, d)  # fp32
+    with spans.span("moe.combine"):
+        out = _combine(oe, w, idx, tables, valid)
+    return out, logits, idx, valid
+
+
+def _combine(oe: torch.Tensor, w: torch.Tensor, idx: torch.Tensor,
+             tables: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Each token's weighted expert outputs ``[T, d]`` fp32 from the
+    products' rows ``oe [E_local·G·C, d]`` (``tables``/``valid`` ``[G,
+    E_local, C]``, gate weights ``w`` and ids ``idx`` ``[T, k]``), added
+    in expert id order."""
+    (G, E_local, C), (T, k), d = tables.shape, idx.shape, oe.shape[1]
+    Tg, dev = T // G, oe.device
 
     # Each assignment's slot, read back from the tables: slot (g, e, c)
     # holds assignment tables[g, e, c] when valid.  An assignment that was
@@ -332,7 +395,7 @@ def _routed_experts(router: torch.Tensor, w_gate: torch.Tensor,
     out = torch.zeros((T, d), dtype=ACC, device=dev)
     for j in range(k):
         out = out + contrib[:, j]
-    return out, logits, idx, valid
+    return out
 
 
 def _lb_loss(logits: torch.Tensor, idx: torch.Tensor, E: int) -> torch.Tensor:
@@ -353,10 +416,12 @@ def moe_ffn(p: MoeFfn, x: torch.Tensor, cfg: ModelConfig, dp_groups: int = 1,
     shared experts added in fp32 before the one rounding to ``x.dtype``.
     ``metrics`` (the Switch-style ``lb_loss`` and the share of empty
     expert slots ``drop_frac``, as the reference computes them) are
-    ``None`` with ``metrics=False``, which serving passes."""
+    ``None`` with ``metrics=False``, which serving passes.  The routing
+    is counted into the open tally, where one is (``spans.tally``)."""
     B, S, d = x.shape
     out, logits, idx, valid = _routed_experts(p.router, p.w_gate, p.w_up,
                                               p.w_down, x, cfg, dp_groups)
+    spans.count_routing(idx, valid, cfg.n_experts)
     if p.shared is not None:
         out = out + L.mlp(p.shared, x).reshape(B * S, d).to(ACC)
     out = out.reshape(B, S, d).to(x.dtype)
@@ -534,16 +599,15 @@ def params_to_arrays(cfg: ModelConfig, model: Moe) -> Dict[str, Any]:
 # ---------------------------------------------------------------------------
 
 
-def _prefill_stacks(stacks, x, cfg, max_len, dp_groups, layout):
+def _prefill_stacks(stacks, x, cfg, max_len, dp_groups, layout,
+                    n_valid=None):
     caches = []
     for blocks in stacks:
         x, c = TF.prefill_layers(blocks, x, cfg, max_len, layout,
                                  _ffn(cfg, dp_groups),
-                                 cache_dtype=DECODE_CACHE_DTYPE)
+                                 cache_dtype=cache_dtype(cfg), n_valid=n_valid)
         caches.append({"k": c["k"], "v": c["v"]})
-    S = x.shape[1]
-    return x, {"stacks": caches,
-               "length": torch.full((), S, dtype=torch.int32, device=x.device)}
+    return x, {"stacks": caches, "length": c["length"]}
 
 
 def _decode_stacks(attn, stacks, x, cache, cfg, dp_groups,
@@ -559,14 +623,33 @@ def _decode_stacks(attn, stacks, x, cache, cfg, dp_groups,
 def prefill(params: Moe, tokens: torch.Tensor, cfg: ModelConfig,
             max_len: int, dp_groups: int = 1,
             layout: KVCacheLayout = KVCacheLayout(),
+            n_valid: Optional[torch.Tensor] = None,
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """Run the prompt; the cache holds one fp32 ``[L, B, KV, S_cap, D]``
-    KV stack per block kind.  Returns the last position's logits
-    [B, 1, V] (fp32) and the cache."""
-    x = L.embed_tokens(params.embed, tokens)
-    x, cache = _prefill_stacks(_stacks(params.dense_blocks, params.moe_blocks),
-                               x, cfg, max_len, dp_groups, layout)
-    return TF.final_logits(x[:, -1:], params.ln_f, params.head, cfg), cache
+    """Run the prompt; the cache holds one ``[L, B, KV, S_cap, D]`` KV
+    stack per block kind in :func:`cache_dtype`.  Returns the last
+    position's logits [B, 1, V] (fp32) and the cache.
+
+    ``n_valid`` (an int32 scalar on the device): the prompt is padded at
+    its end and its first n positions are real; the logits are position
+    n - 1's and the cache's ``length`` is n, without a host read, as
+    ``transformer.prefill`` pads.  Exact only without a capacity
+    (``moe_capacity_factor`` None): a capacity counts the padded tokens'
+    assignments too, which can push a real token's out.  The routing is
+    counted under ``moe.prefill`` (``spans.tally``)."""
+    if n_valid is not None and cfg.moe_capacity_factor is not None:
+        raise ValueError("a padded moe prefill needs no capacity "
+                         "(moe_capacity_factor None): padded tokens would "
+                         "compete for the experts' slots")
+    with spans.tally("moe.prefill"):
+        x = L.embed_tokens(params.embed, tokens)
+        x, cache = _prefill_stacks(
+            _stacks(params.dense_blocks, params.moe_blocks), x, cfg, max_len,
+            dp_groups, layout, n_valid)
+        if n_valid is None:
+            last = x[:, -1:]
+        else:
+            last = x.index_select(1, (n_valid.long() - 1).reshape(1))
+        return TF.final_logits(last, params.ln_f, params.head, cfg), cache
 
 
 def decode_step(params: Moe, token: torch.Tensor, cache: Dict[str, Any],
@@ -576,24 +659,27 @@ def decode_step(params: Moe, token: torch.Tensor, cache: Dict[str, Any],
     """One decode step, token [B, 1] → logits [B, 1, V] (fp32), as
     ``transformer.decode_step`` (K and V written in place; ``length`` a
     scalar or ``[B]``).  The backend gets a ``q`` in the params' dtype and
-    the fp32 cache, widens ``q`` and rounds its output to ``q``'s dtype.
+    the cache in :func:`cache_dtype`; with an fp32 cache it widens ``q``
+    and rounds its output to ``q``'s dtype.
     ``dp_groups`` groups the B tokens for routing when the batch shares
     one length; with one length a row (the continuous-batching slots,
     each its own request) each row is its own group, as each B = 1 step
     of the reference's scheduler routes its one token, so that a row's
     experts never depend on its neighbours.  ``seq_shard_axes``: the
     sequence-sharded step over a mesh, as in
-    ``transformer.decode_step``."""
+    ``transformer.decode_step``.  The routing is counted under
+    ``moe.decode`` (``spans.tally``)."""
     attn = get_backend("attention", attn_backend)
     if cache["length"].dim() == 1:
         dp_groups = token.shape[0]
     if layout is not None:
         check_kv_capacity(layout, cache["stacks"][-1]["k"])
-    x = L.embed_tokens(params.embed, token)
-    x, new_cache = _decode_stacks(
-        attn, _stacks(params.dense_blocks, params.moe_blocks), x, cache, cfg,
-        dp_groups, seq_shard_axes)
-    return TF.final_logits(x, params.ln_f, params.head, cfg), new_cache
+    with spans.tally("moe.decode"):
+        x = L.embed_tokens(params.embed, token)
+        x, new_cache = _decode_stacks(
+            attn, _stacks(params.dense_blocks, params.moe_blocks), x, cache,
+            cfg, dp_groups, seq_shard_axes)
+        return TF.final_logits(x, params.ln_f, params.head, cfg), new_cache
 
 
 def cache_seq_axes(cache):

@@ -54,10 +54,13 @@ class ModelApi:
     # prefill takes ``n_valid`` (a prompt padded at its end, n positions
     # real) and pads exactly: each real position's result depends only on
     # the positions before it (causal attention, position-wise ops).  True
-    # for ``transformer.prefill`` (dense, vlm); the moe family routes by a
-    # capacity that counts every token, the recurrent families (ssm,
-    # hybrid) carry their state through every position, and the encdec
-    # family's prefill has not been examined, so they keep the unpadded one
+    # for ``transformer.prefill`` (dense, vlm) and for the moe family's
+    # without a capacity (``moe_capacity_factor`` None, as deepseek-moe-16b
+    # is published: no token drops, so a padded token's routing changes no
+    # real token's result); at a capacity the moe family's routing counts
+    # every token, padded ones too, the recurrent families (ssm, hybrid)
+    # carry their state through every position, and the encdec family's
+    # prefill has not been examined, so they keep the unpadded one
     prefill_pads: bool = False
 
 
@@ -100,13 +103,14 @@ def get_model(cfg: ModelConfig, attn_backend=None) -> ModelApi:
                                                           dp_groups),
             forward=lambda p, b, dp_groups=1: moe.forward(
                 p, b["tokens"], cfg, dp_groups)[0],
-            prefill=lambda p, b, max_len, dp_groups=1: moe.prefill(
-                p, b["tokens"], cfg, max_len, dp_groups,
-                layout=layout(max_len)),
+            prefill=lambda p, b, max_len, dp_groups=1, n_valid=None:
+                moe.prefill(p, b["tokens"], cfg, max_len, dp_groups,
+                            layout=layout(max_len), n_valid=n_valid),
             decode_step=lambda p, t, c, dp_groups=1, **kw: moe.decode_step(
                 p, t, c, cfg, dp_groups, attn_backend=attn, **kw),
             cache_seq_axes=moe.cache_seq_axes,
             ref_leaves=moe.ref_leaves,
+            prefill_pads=cfg.moe_capacity_factor is None,
         )
     if fam == "hybrid":
         return ModelApi(
@@ -312,7 +316,7 @@ def cache_specs(cfg: ModelConfig, shape: ShapeConfig, abstract: bool = True,
         return {"k": kv(cfg.n_layers), "v": kv(cfg.n_layers),
                 "length": length(S - 1)}
     if fam == "moe":
-        fd, dt = cfg.first_dense_layers, moe.DECODE_CACHE_DTYPE
+        fd, dt = cfg.first_dense_layers, moe.cache_dtype(cfg)
         counts = [n for n in (fd, cfg.n_layers - fd) if n]
         return {"stacks": [{"k": kv(n, dtype=dt), "v": kv(n, dtype=dt)}
                            for n in counts],

@@ -22,9 +22,10 @@ stream instead, with admission control:
 * requests admitted mid-decode as slots free up, retired the step their
   token budget completes; admission order is FIFO over (arrival, rid);
 * each admission's B = 1 prefill, for a family whose prefill pads
-  (``ModelApi.prefill_pads``: dense, vlm), run at the prompt's length
-  bucket (:func:`prefill_buckets`: powers of two from 16, then the slot
-  capacity) with the prompt padded at its end; where the step is graphed,
+  (``ModelApi.prefill_pads``: dense, vlm, and moe without a capacity), run
+  at the prompt's length bucket (:func:`prefill_buckets`: powers of two
+  from 16, then the slot capacity) with the prompt padded at its end
+  (``prefill(..., n_valid=)``); where the step is graphed,
   from a CUDA graph captured per bucket at construction beside the
   step's, else the same padded prefill eagerly.  An eager prefill is a
   chain of small launches, one op at a time, so the host, not the card,
@@ -36,8 +37,8 @@ stream instead, with admission control:
   come after every real one, so causal attention keeps them out of every
   real position's result, and their K and V land in the slot's pages at
   positions >= its length, which the decode step masks to an exact zero
-  and overwrites one a step.  The moe, ssm, hybrid and encdec families
-  keep the unpadded eager prefill;
+  and overwrites one a step.  The moe family at a capacity, ssm, hybrid
+  and encdec keep the unpadded eager prefill;
 * over a mesh (``mesh``, ``axis_name``), the sequence-sharded step: the
   pool gathers the paged leaves shard-major, the S axis split into one
   slice a device along ``axis_name`` (each a contiguous block, no copy on

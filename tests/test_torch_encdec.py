@@ -50,6 +50,7 @@ from repro_torch.core.backends import (  # noqa: E402
 from repro_torch.models import encdec, registry  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
 from _xla_strict import strict_jit  # noqa: E402
+from _port_keys import as_port  # noqa: E402
 
 ARCH = "seamless-m4t-medium"
 BLOCK_K = 8
@@ -125,8 +126,8 @@ def _clone(cache):
 
 def test_config_matches_the_reference():
     port, ref = get_config(ARCH), ref_get_config(ARCH)
-    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
-    assert dataclasses.asdict(port.reduced()) == dataclasses.asdict(ref.reduced())
+    assert dataclasses.asdict(port) == as_port(ref)
+    assert dataclasses.asdict(port.reduced()) == as_port(ref.reduced())
     assert port.param_count() == ref.param_count()
     assert 0.4e9 <= port.param_count() <= 1.6e9
     assert (port.n_encoder_layers, port.n_layers, port.frontend_tokens) == (

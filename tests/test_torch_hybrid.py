@@ -43,6 +43,7 @@ from repro_torch.core.backends import (  # noqa: E402
 )
 from repro_torch.models import hybrid, registry  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
+from _port_keys import as_port  # noqa: E402
 
 ARCH = "zamba2-7b"
 CASES = {"tail": 7, "no_tail": 6}       # n_layers; shared block every 3
@@ -146,8 +147,8 @@ def _clone(cache):
 
 def test_config_matches_the_reference():
     port, ref = get_config(ARCH), ref_get_config(ARCH)
-    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
-    assert dataclasses.asdict(port.reduced()) == dataclasses.asdict(ref.reduced())
+    assert dataclasses.asdict(port) == as_port(ref)
+    assert dataclasses.asdict(port.reduced()) == as_port(ref.reduced())
     assert port.param_count() == ref.param_count()
     assert 6.0e9 <= port.param_count() <= 7.5e9
     assert (port.d_head, port.n_heads, port.n_kv_heads) == (112, 32, 32)

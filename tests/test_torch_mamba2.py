@@ -40,6 +40,7 @@ from repro_torch.models import mamba2  # noqa: E402
 from repro_torch.models.registry import get_model  # noqa: E402
 from repro_torch.serving import router  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
+from _port_keys import as_port  # noqa: E402
 
 ARCH = "mamba2-370m"
 B, S_PROMPT, NEW = 2, 40, 4
@@ -79,9 +80,8 @@ def prefilled(case):
 def test_config_and_params_carry_over(case):
     cfg, ref_cfg, _, params, port, _ = case
     assert ARCH in list_archs()
-    assert dataclasses.asdict(get_config(ARCH)) == dataclasses.asdict(
-        ref_get_config(ARCH))
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(ref_cfg)
+    assert dataclasses.asdict(get_config(ARCH)) == as_port(ref_get_config(ARCH))
+    assert dataclasses.asdict(cfg) == as_port(ref_cfg)
     assert get_config(ARCH).param_count() == ref_get_config(ARCH).param_count()
     assert sum(p.numel() for p in port.parameters()) == sum(
         a.size for a in jax.tree.leaves(params))

@@ -45,6 +45,7 @@ from repro_torch.kernels.decode_attention import ops as decode_ops  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.registry import get_model  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
+from _port_keys import as_port  # noqa: E402
 
 ARCHS = ["deepseek-moe-16b", "kimi-k2-1t-a32b"]
 BLOCK_K = 8
@@ -111,8 +112,8 @@ def prefilled(case):
 def test_configs_match_the_reference():
     for arch in ARCHS:
         port, ref = get_config(arch), ref_get_config(arch)
-        assert dataclasses.asdict(port) == dataclasses.asdict(ref)
-        assert dataclasses.asdict(port.reduced()) == dataclasses.asdict(ref.reduced())
+        assert dataclasses.asdict(port) == as_port(ref)
+        assert dataclasses.asdict(port.reduced()) == as_port(ref.reduced())
         assert port.param_count() == ref.param_count()
         assert port.active_param_count() == ref.active_param_count()
     assert 1.3e10 <= get_config("deepseek-moe-16b").param_count() <= 2.0e10

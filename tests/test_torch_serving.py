@@ -48,6 +48,7 @@ from repro_torch.models.registry import get_model  # noqa: E402
 from repro_torch.serving import router  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
 from repro_torch.serving.scheduler import Request  # noqa: E402
+from _port_keys import as_port  # noqa: E402
 
 ARCHS = ["internlm2-1.8b", "llama3.2-1b", "codeqwen1.5-7b", "minicpm-2b"]
 BLOCK_K = 8
@@ -104,14 +105,14 @@ def prefilled(case):
 def test_configs_match_the_reference():
     for arch in ARCHS:
         port, ref = get_config(arch), ref_get_config(arch)
-        assert dataclasses.asdict(port) == dataclasses.asdict(ref)
-        assert dataclasses.asdict(port.reduced()) == dataclasses.asdict(ref.reduced())
+        assert dataclasses.asdict(port) == as_port(ref)
+        assert dataclasses.asdict(port.reduced()) == as_port(ref.reduced())
         assert port.padded_vocab() == ref.padded_vocab()
         assert port.param_count() == ref.param_count()
     assert dataclasses.asdict(get_config("deepseek-moe-16b")) == \
-        dataclasses.asdict(ref_get_config("deepseek-moe-16b"))
+        as_port(ref_get_config("deepseek-moe-16b"))
     assert dataclasses.asdict(get_config("sparse-dnn-graphchallenge")) == \
-        dataclasses.asdict(ref_get_config("sparse-dnn-graphchallenge"))
+        as_port(ref_get_config("sparse-dnn-graphchallenge"))
     with pytest.raises(KeyError):
         get_config("gpt-9")
 

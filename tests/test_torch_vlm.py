@@ -48,6 +48,7 @@ from repro_torch.faas.lm_pipeline import (  # noqa: E402
 )
 from repro_torch.models import registry, transformer  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
+from _port_keys import as_port  # noqa: E402
 
 ARCH = "internvl2-2b"
 BLOCK_K = 8
@@ -110,8 +111,8 @@ def prefilled(case):
 
 def test_config_matches_the_reference():
     port, ref = get_config(ARCH), ref_get_config(ARCH)
-    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
-    assert dataclasses.asdict(port.reduced()) == dataclasses.asdict(ref.reduced())
+    assert dataclasses.asdict(port) == as_port(ref)
+    assert dataclasses.asdict(port.reduced()) == as_port(ref.reduced())
     assert port.param_count() == ref.param_count()
     assert 1.5e9 <= port.param_count() <= 2.6e9
     assert (port.family, port.frontend_tokens, port.d_head) == ("vlm", 256, 128)
