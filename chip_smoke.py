@@ -33,7 +33,15 @@ Run from the root of a checkout.  Phases, each printed as it ends:
    serving path's shape (B 8, H 16, KV 8, D 128, S 640) in bf16 (2e-2) and
    fp32 (1e-5) at cache lengths 0, 1, 63, 64, 65, 544 and 640 and one key
    either side of every split's first and last key (the kernel splits the
-   cache across blocks); G = 1 and G = 4 at D 64; one long-cache layer
+   cache across blocks); G = 1 and G = 4 at D 64; the kernel's paged form
+   (``ops.decode_mha_paged``: K and V in shuffled pages of one layer of a
+   two-layer buffer, read through a block table) at the serving shape in
+   pages of 128 (bf16 and fp32) and at the benchmark cell's (B 128, S 1536,
+   pages of 256, bf16), against the plain version (2e-2, 1e-5) and bit for
+   bit the contiguous kernel over the gathered copy at 0, 1, each page's
+   edges +-1 and the capacity and with one length a row, then both forms
+   timed from a CUDA graph beside their bytes bound (``[time]
+   decode_attention_paged`` lines); one long-cache layer
    (B 32, KV 8, S 32768, D 128, bf16);
 5. the serving path: ``ServingEngine(get_config("internlm2-1.8b"))`` at
    full width (24 layers, bf16 params drawn on the card from seed 0,
@@ -62,8 +70,10 @@ Run from the root of a checkout.  Phases, each printed as it ends:
    times), one prefill graph a prompt-length bucket and one replay an
    admission, the same stream eager (the same padded prefill) bit for bit
    equal, ms a step (between CUDA events) and the decode steps'
-   tokens/s graphed and eager, the gather's device time, and slot-steps
-   against padded static batching; the padded prefill's graphs at the
+   tokens/s graphed and eager, no step gathering the pool
+   (``gather_steps`` 0: the step reads the pages through the block
+   table, every launch the kernel's paged form), and slot-steps against
+   padded static batching; the padded prefill's graphs at the
    benchmark cell's capacity 1536 (all eight buckets): a stream of
    prompts of 8-512 tokens graphed against eager bit for bit, each prompt's
    padded prefill teacher-forced against the unpadded one (<= 1% of the
@@ -341,6 +351,12 @@ EXACT_SHARE = 0.98
 SSD_STATE_TOL = dict(rtol=1e-4, atol=1e-4)
 ARCH, SERVE_BATCH, PROMPT, NEW, NEW_FP32 = "internlm2-1.8b", 8, 512, 32, 8
 DECODE_SHAPE = (SERVE_BATCH, 16, 8, 640, 128)   # B, H, KV, S, D of the path
+# the paged form: (B, H, KV, S, D, block_k, dtypes) at the serving shape and
+# at the benchmark cell's (128 slots of 1536, pages of 256), timed at the
+# cell's mean length (prompts ~70 + outputs ~215)
+PAGED_SHAPES = ((*DECODE_SHAPE, 128, (torch.bfloat16, torch.float32)),
+                (128, 16, 8, 1536, 128, 256, (torch.bfloat16,)))
+PAGED_LEN = 285
 LONG_BATCH, LONG_S = 32, 32768                  # one long-cache layer
 # bf16 logits, teacher-forced, kernel vs its plain version: the reference's
 # model-level tolerance, which 24 bf16 layers break on a few entries (one
@@ -1132,9 +1148,76 @@ def sdpa_call(q, k, v, L=None, causal=False):
                                                   enable_gqa=True)[:, :, 0]
 
 
+def paged_check(dev, peaks, card):
+    """The kernel's paged form at ``PAGED_SHAPES``: K and V in shuffled
+    pages of layer 1 of a two-layer buffer (the pool's page stride), each
+    length at 0, 1, every page's edges +-1 and the capacity, and one length
+    a row, against the plain version (``DECODE_TOL``) and bit for bit the
+    contiguous kernel over the gathered copy; then both forms from a CUDA
+    graph at ``PAGED_LEN`` beside the bytes bound.  Returns (timing by
+    shape, max error)."""
+    from repro_torch.kernels.decode_attention import ops, ref
+
+    gen = torch.Generator().manual_seed(SEED + 7)
+    dgen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    timing, worst = {}, 0.0
+    for B, H, KV, S, D, bk, dtypes in PAGED_SHAPES:
+        W = S // bk
+        nb = B * W + 3
+        table = torch.randperm(nb, generator=gen)[:B * W].view(B, W).to(
+            dev, torch.int32)
+        edges = {0, 1, S}
+        for e in range(bk, S, bk):
+            edges.update((e - 1, e, e + 1))
+        rows = torch.randint(1, S + 1, (B,), generator=gen, dtype=torch.int32)
+        lens = [torch.tensor([L], dtype=torch.int32, device=dev)
+                for L in sorted(edges)] + [rows.to(dev)]
+        for dtype in dtypes:
+            tag = f"B{B} H{H} KV{KV} S{S} D{D} pages of {bk} {dtype}"
+            q, k, v = (torch.randn(shape, generator=dgen, device=dev,
+                                   dtype=dtype)
+                       for shape in ((B, H, D), (nb, 2, KV, bk, D),
+                                     (nb, 2, KV, bk, D)))
+            k, v = k[:, 1], v[:, 1]
+            kc, vc = ref.gather_pages(k, table), ref.gather_pages(v, table)
+            err = 0.0
+            for lt in lens:
+                out, lse = ops.decode_mha_paged(q, k, v, table, lt)
+                want, want_lse = ops.decode_mha(q, kc, vc, lt)
+                plain, plain_lse = ref.decode_attention_paged_ref(q, k, v,
+                                                                  table, lt)
+                torch.cuda.synchronize()
+                check(torch.equal(out, want) and torch.equal(lse, want_lse),
+                      f"paged {tag} at lengths {lt.tolist()[:4]}: not bit "
+                      f"for bit the contiguous kernel over the gathered copy")
+                torch.testing.assert_close(out.float(), plain.float(),
+                                           **DECODE_TOL[dtype])
+                torch.testing.assert_close(lse, plain_lse, **DECODE_TOL[dtype])
+                err = max(err, (out.float() - plain.float()).abs().max().item())
+            worst = max(worst, err)
+            lt = torch.tensor([PAGED_LEN], dtype=torch.int32, device=dev)
+            paged_ms = graph_ms(lambda: ops.decode_mha_paged(q, k, v, table, lt))
+            flat_ms = graph_ms(lambda: ops.decode_mha(q, kc, vc, lt))
+            b_ms, b_by, nbytes, _ = decode_bound(B, H, KV, PAGED_LEN, D, dtype,
+                                                 peaks)
+            log(f"[time] decode_attention_paged {tag}: {len(lens)} lengths "
+                f"bit for bit the contiguous kernel over the gathered copy, "
+                f"max |paged - plain| {err:.3e} (tolerance "
+                f"{DECODE_TOL[dtype]['atol']}); at cache_len {PAGED_LEN} from "
+                f"a CUDA graph paged {paged_ms:.4f} ms, contiguous "
+                f"{flat_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} "
+                f"({nbytes / 1e6:.1f} MB; paged {nbytes / paged_ms / 1e6:.1f} "
+                f"GB/s) on {card}")
+            timing[tag] = dict(graph_ms=paged_ms, contiguous_graph_ms=flat_ms,
+                               bound_ms=b_ms, max_abs_err=err)
+            del q, k, v, kc, vc
+        torch.cuda.empty_cache()
+    return timing, worst
+
+
 def decode_phase(dev, peaks, card):
-    """The kernel against its plain version, then its times.  Returns
-    (timing, max error)."""
+    """The kernel against its plain version, its paged form
+    (:func:`paged_check`), then its times.  Returns (timing, max error)."""
     from repro_torch.kernels.decode_attention import ops, ref
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -1196,6 +1279,8 @@ def decode_phase(dev, peaks, card):
         errs.append(held(f"G{H_ // KV_} D64 bf16", q, k, v, [0, 1, 129, 300]))
         q, k, v = operands(4, H_, KV_, 300, 64, torch.float32)
         errs.append(held(f"G{H_ // KV_} D64 fp32", q, k, v, [0, 1, 129, 300]))
+    paged, paged_err = paged_check(dev, peaks, card)
+    errs.append(paged_err)
 
     def times(q, k, v, L, tag, reps, burst=False):
         lt = torch.tensor([L], dtype=torch.int32, device=dev)
@@ -1259,6 +1344,7 @@ def decode_phase(dev, peaks, card):
     timing["split_sweep"] = sweep(*main[torch.bfloat16], PROMPT + NEW,
                                   "serving shape bf16", (1, 2, 3, 5, 8, 10),
                                   graph=True)
+    timing["paged"] = paged
     del main
     # one long-cache layer: 4.29 GB of K and V
     LB, LS = LONG_BATCH, LONG_S
@@ -1754,12 +1840,13 @@ def cb_prefill_check(engine, dev, card) -> dict:
     return out
 
 
-def cb_phase(dev, peaks, card):
+def cb_phase(dev, card):
     """Continuous batching at internlm2-1.8b's full width (24 layers, bf16
     params from seed 0, ``torch-splitk``): the per-row decode kernel, then
     the ragged stream graphed and eager (bit for bit the same), its
-    launches, capture count, step times, the decode steps' tokens/s, the
-    gather's device time and slot-steps, then fp32 requests against solo
+    launches (the paged form's), capture count, ``gather_steps`` (0), step
+    times, the decode steps' tokens/s and slot-steps, then fp32 requests
+    against solo
     runs and ``generate``.  Returns (the decode kernel's launches in the
     profiler's trace of the graphed stream, the per-row check's max error,
     the stream's numbers)."""
@@ -1806,7 +1893,7 @@ def cb_phase(dev, peaks, card):
     # the wrapper counts the launches it makes: the warm-up's and the ones
     # the capture records; the replays run the graph, not the wrapper
     built = read_counts()
-    want = only(built, decode_attention=cfg.n_layers * (WARMUP_STEPS + 1))
+    want = only(built, decode_attention_paged=cfg.n_layers * (WARMUP_STEPS + 1))
     check(built == want, f"graphed stream's wrapper launches {built}, want {want}")
     steps = sched.steps_run
     # The profiler can lose a few of the ~243k device events of a traced
@@ -1844,8 +1931,11 @@ def cb_phase(dev, peaks, card):
     reset_counts()
     res_e, _, ms_e = drive(eager, reqs)
     launches = read_counts()
-    want = only(launches, decode_attention=cfg.n_layers * steps)
+    want = only(launches, decode_attention_paged=cfg.n_layers * steps)
     check(launches == want, f"eager stream launches {launches}, want {want}")
+    check(sched.gather_steps == eager.gather_steps == 0,
+          f"gather_steps {sched.gather_steps} graphed, {eager.gather_steps} "
+          f"eager: the single-device step gathered the pool")
     same_results(res_g, res_e, "graph vs eager")
     check(eager.steps_run == steps and eager.captures == 0, "eager steps differ")
     check(sched.captures == 1, f"{sched.captures} captures over {streams} streams")
@@ -1859,39 +1949,30 @@ def cb_phase(dev, peaks, card):
     check(sched.tokens_emitted == streams * tokens, "tokens emitted != the budgets")
     static = static_slot_steps(reqs, CB_SLOTS)
     med_g, med_e = statistics.median(ms_g), statistics.median(ms_e)
-    gather = lambda: pool.gather(pool.buffers, sched._tables_dev)  # noqa: E731
-    g_b2b, g_graph, g_dev = burst_ms(gather, n=20, reps=3)
-    g_bytes = 2 * 2 * pool.buffers["k"][0, 0].numel() * pool.buffers["k"].element_size() \
-        * CB_SLOTS * cap
     log(f"[stream] {steps} decode steps, {tokens} tokens; decode kernels in "
         f"the profiler's trace of the graphed stream {traced} = "
         f"{cfg.n_layers} x {steps} (trace read in {t_read:.2f} s); wrapper "
-        f"launches: {built['decode_attention']} building the graph "
-        f"({WARMUP_STEPS} warm-up steps and the capture), "
-        f"{launches['decode_attention']} on the eager stream; captures "
+        f"launches of the paged form: {built['decode_attention_paged']} "
+        f"building the graph ({WARMUP_STEPS} warm-up steps and the capture), "
+        f"{launches['decode_attention_paged']} on the eager stream; captures "
         f"{sched.captures} (over {streams} streams), prefill graphs "
         f"{sched.prefill_captures} (one a bucket of {prefill_buckets(cap)}), "
         f"{sched.prefill_replays} replays = {streams} x {len(reqs)} "
-        f"admissions; graph and eager tokens and final logits bit for bit "
-        f"equal")
+        f"admissions, gather_steps {sched.gather_steps} of "
+        f"{sched.steps_run}; graph and eager tokens and final logits bit for "
+        f"bit equal")
     log(f"[stream] ms a step (median between CUDA events): graph {med_g:.3f}, "
         f"eager {med_e:.3f} ({med_e / med_g:.2f}x); decode steps alone: "
         f"graph {tokens / sum(ms_g) * 1e3:.1f} tokens/s, eager "
         f"{tokens / sum(ms_e) * 1e3:.1f} tokens/s, on {card}")
-    log(f"[stream] gather of K and V ([{cfg.n_layers}, {CB_SLOTS}, "
-        f"{cfg.eff_kv_heads}, {cap}, {cfg.d_head}] each, {g_bytes / 1e9:.3f} GB "
-        f"read and written): {g_b2b:.4f} ms back to back, {g_graph:.4f} from a "
-        f"CUDA graph, {fmt_ms(g_dev)} ms of device time; bound "
-        f"{g_bytes / peaks[0] * 1e3:.4f} ms (bytes), on {card}")
     log(f"[stream] slot-steps: continuous {steps * CB_SLOTS} ({steps} steps x "
         f"{CB_SLOTS}), padded static batching {static}; {tokens} tokens")
     check(steps * CB_SLOTS < static, "continuous batching spent no fewer "
                                      "slot-steps than padded static batches")
     summary = dict(steps=steps, tokens=tokens, step_ms_graph=med_g,
-                   step_ms_eager=med_e, gather_graph_ms=g_graph,
-                   gather_device_ms=g_dev, slot_steps=steps * CB_SLOTS,
-                   static_slot_steps=static)
-    del sched, eager, pool, gather
+                   step_ms_eager=med_e, gather_steps=sched.gather_steps,
+                   slot_steps=steps * CB_SLOTS, static_slot_steps=static)
+    del sched, eager, pool
     torch.cuda.empty_cache()
     summary["prefill"] = cb_prefill_check(engine, dev, card)
 
@@ -2227,6 +2308,9 @@ def stream_mesh_phase(dev, card):
             launches = counts["decode_attention"]
             want = only(counts, decode_attention=cfg.n_layers * d * eager.steps_run)
             check(counts == want, f"D {d} eager stream launches {counts}, want {want}")
+            check(eager.gather_steps == eager.steps_run,
+                  f"D {d}: gather_steps {eager.gather_steps} of "
+                  f"{eager.steps_run}: the sharded step gathers every step")
             same_results(res, res_e, f"D {d} graph vs eager")
             for r in reqs:
                 solo = {x.rid: x for x in sched.run([dataclasses.replace(r, arrival=0)])}
@@ -2991,6 +3075,15 @@ def moe_kernel(dev, peaks, card, cfg, S):
                 bound_by=b_by, **extra), worst
 
 
+def pinned_route(logits, idx, normalize=True):
+    """``moe.route_topk``'s gate weights at the given expert ids ``idx``:
+    a softmax over the selected logits, or (``normalize`` False) the
+    selected entries of a softmax over all of them."""
+    if not normalize:
+        return torch.gather(torch.softmax(logits.float(), dim=-1), -1, idx), idx
+    return torch.softmax(torch.gather(logits, -1, idx).float(), dim=-1), idx
+
+
 def moe_teacher_forced(engine, prompts, res, dev, card) -> dict:
     """Teacher-forced on ``res``'s tokens, bf16, the kernel's engine against
     the same params through the kernel's plain version, twice.  Free: each
@@ -3012,15 +3105,13 @@ def moe_teacher_forced(engine, prompts, res, dev, card) -> dict:
     routes: list = []
     pinned: list = []
 
-    def recorded(logits, k):
-        w, idx = route_topk(logits, k)
+    def recorded(logits, k, normalize=True):
+        w, idx = route_topk(logits, k, normalize)
         routes.append(idx)
         return w, idx
 
-    def replayed(logits, k):
-        idx = pinned.pop(0)
-        w = torch.softmax(torch.gather(logits, -1, idx).float(), dim=-1)
-        return w, idx
+    def replayed(logits, k, normalize=True):
+        return pinned_route(logits, pinned.pop(0), normalize)
 
     stats = {run: dict(outside=0.0, rel=0.0, agree=0) for run in ("free", "pinned")}
     replay = same_experts = pairs = 0
@@ -3121,8 +3212,10 @@ def moe_stream(engine, dev, card) -> dict:
     reset_counts()
     res_e, wall_e, ms_e = drive(eager, reqs)
     counts = read_counts()
-    want = only(counts, decode_attention=cfg.n_layers * eager.steps_run)
+    want = only(counts, **stream_launches(cfg, eager.steps_run))
     check(counts == want, f"moe eager stream launches {counts}, want {want}")
+    check(sched.gather_steps == eager.gather_steps == 0,
+          f"moe stream gather_steps {sched.gather_steps}, {eager.gather_steps}")
     same_results(res, res_e, "moe graph vs eager")
     for r in reqs:
         solo = {x.rid: x for x in sched.run([dataclasses.replace(r, arrival=0)])}
@@ -3133,8 +3226,9 @@ def moe_stream(engine, dev, card) -> dict:
         f"{[r.max_new_tokens for r in reqs]}) through {slots} slots of "
         f"capacity {cap}, one token group a slot: {steps} steps, {tokens} "
         f"tokens; scheduler built and captured in {t_build:.2f} s; graph = "
-        f"eager bit for bit ({counts['decode_attention']} = {cfg.n_layers} x "
-        f"{eager.steps_run} decode kernels eager); each request bit for bit "
+        f"eager bit for bit ({counts['decode_attention_paged']} = "
+        f"{cfg.n_layers} x {eager.steps_run} paged decode kernels eager, "
+        f"gather_steps {sched.gather_steps}); each request bit for bit "
         f"itself served alone; ms a step graph {statistics.median(ms):.3f}, "
         f"eager {statistics.median(ms_e):.3f}; stream wall graph {wall:.3f} s "
         f"({tokens / wall:.1f} tokens/s), eager {wall_e:.3f} s "
@@ -3207,8 +3301,8 @@ def ep_layer_check(engine, prompts, res, mesh, dev, card) -> dict:
     route_topk = moe.route_topk
     routes: list = []
 
-    def recorded(logits, k):
-        w, idx = route_topk(logits, k)
+    def recorded(logits, k, normalize=True):
+        w, idx = route_topk(logits, k, normalize)
         routes.append(idx)
         return w, idx
 
@@ -3268,15 +3362,15 @@ def ep_teacher_forced(engine, prompts, res, mesh, dev) -> dict:
     pinned: list = []
     calls = [0]
 
-    def recorded(logits, k):
-        w, idx = route_topk(logits, k)
+    def recorded(logits, k, normalize=True):
+        w, idx = route_topk(logits, k, normalize)
         routes.append(idx)
         return w, idx
 
-    def replayed(logits, k):
+    def replayed(logits, k, normalize=True):
         idx = pinned[calls[0] // M]
         calls[0] += 1
-        return torch.softmax(torch.gather(logits, -1, idx).float(), dim=-1), idx
+        return pinned_route(logits, idx, normalize)
 
     batch = {"tokens": torch.as_tensor(prompts, dtype=torch.int64, device=dev)}
     toks = torch.as_tensor(res.tokens, dtype=torch.int64, device=dev)
@@ -3569,6 +3663,15 @@ def frontend(cfg, B: int, seed: int):
             .astype(np.float32)}
 
 
+def stream_launches(cfg, steps: int) -> dict:
+    """The decode-kernel launches of ``steps`` eager steps of the scheduler
+    on one device: the paged form's for the growing self-attention, the
+    contiguous form's for the encdec family's cross attention."""
+    cross = cfg.n_layers if cfg.family == "encdec" else 0
+    return dict(decode_attention=cross * steps,
+                decode_attention_paged=(launches_a_step(cfg) - cross) * steps)
+
+
 def launches_a_step(cfg) -> int:
     """Decode-kernel launches of one decode step: one a shared-attention
     site (hybrid), two a decoder layer (encdec: self and cross), else one a
@@ -3798,8 +3901,11 @@ def family_stream(engine, dev, card) -> dict:
     reset_counts()
     res_e, wall_e, ms_e = drive(eager, reqs)
     counts = read_counts()
-    want = only(counts, decode_attention=launches_a_step(cfg) * eager.steps_run)
+    want = only(counts, **stream_launches(cfg, eager.steps_run))
     check(counts == want, f"{cfg.name} eager stream launches {counts}, want {want}")
+    check(sched.gather_steps == eager.gather_steps == 0,
+          f"{cfg.name} stream gather_steps {sched.gather_steps}, "
+          f"{eager.gather_steps}")
     same_results(res, res_e, f"{cfg.name} graph vs eager")
     for r in reqs:
         solo = {x.rid: x for x in sched.run([dataclasses.replace(r, arrival=0)])}
@@ -3812,8 +3918,8 @@ def family_stream(engine, dev, card) -> dict:
            else "") + f") through {slots} slots of capacity {cap}: {steps} "
         f"steps, {tokens} tokens; scheduler built and captured in "
         f"{t_build:.2f} s; graph = eager bit for bit "
-        f"({counts['decode_attention']} = {launches_a_step(cfg)} x "
-        f"{eager.steps_run} decode kernels eager); each request bit for bit "
+        f"({counts} decode kernels over {eager.steps_run} eager steps, "
+        f"gather_steps {sched.gather_steps}); each request bit for bit "
         f"itself served alone; ms a step graph {statistics.median(ms):.3f}, "
         f"eager {statistics.median(ms_e):.3f}; stream wall graph {wall:.3f} s "
         f"({tokens / wall:.1f} tokens/s), eager {wall_e:.3f} s "
@@ -4899,7 +5005,7 @@ def main() -> int:
     timing["decode_attention"], errs["decode_attention"] = decode_phase(
         dev, peaks, card)
     launches["decode_attention"], decode_ms = serve_phase(dev, card)
-    stream_launches, row_err, stream = cb_phase(dev, peaks, card)
+    stream_launches, row_err, stream = cb_phase(dev, card)
     timing["decode_attention"].update(stream_launches=stream_launches,
                                       stream=stream)
     errs["decode_attention"] = max(errs["decode_attention"], row_err)

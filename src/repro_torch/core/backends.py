@@ -49,6 +49,7 @@ import torch
 
 from repro_torch.core.sparse import CSRMatrix, bsr_from_csr
 from repro_torch.data.graphchallenge import ACTIVATION_CLIP, relu_bias_threshold
+from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.decode_attention.ops import decode_mha
 from repro_torch.models.attention import decode_attention, decode_attention_dense
 
@@ -540,6 +541,12 @@ class AttentionBackend(Protocol):
         lse [B,1,H] fp32)`` for an lse-weighted combine."""
         ...
 
+    # Optional, beside ``decode_paged(q, k_cache, v_cache, cache_len)``:
+    # ``decode`` over one layer of a ``models.kvcache.PagedKV``, the pool's
+    # pages read through the block table (``TorchSplitKAttention``'s
+    # kernel).  A backend without it (the plain oracles) gets each layer's
+    # pages gathered by the table from ``transformer._decode_attn``.
+
 
 class DenseRefAttention:
     """``decode_attention_dense``: the whole masked cache in one softmax,
@@ -651,6 +658,20 @@ class TorchSplitKAttention:
         out, lse = decode_mha(q.reshape(B, H, D).to(k_cache.dtype), k_cache,
                               v_cache, cache_len)
         return out[:, None], lse[:, None]
+
+    def decode_paged(self, q, k_cache, v_cache, cache_len):
+        """:meth:`decode` over one layer of a ``PagedKV``: the kernel's
+        paged form (``ops.decode_mha_paged``) reads the pages through the
+        block table, at the split plan of the capacity, so the output is
+        :meth:`decode`'s over the gathered copy bit for bit."""
+        S = k_cache.capacity
+        self.cache_layout(S).check_capacity(S)
+        B, _, H, D = q.shape
+        pages = k_cache.pages
+        out, _ = decode_ops.decode_mha_paged(
+            q.reshape(B, H, D).to(pages.dtype), pages, v_cache.pages,
+            k_cache.table, cache_len)
+        return out[:, None].to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -63,6 +63,19 @@
 //
 // The TPU kernel carries (m, l, acc) across a sequential grid axis over KV
 // blocks; here that axis is the loop inside a block plus the merge.
+//
+// Paged form (Paged = true, decode_attention_paged_launch): K and V stay in
+// the serving pool's pages, [num_blocks, ..., KV, block_k, D] with one page
+// of one KV head contiguous (block_k x D), and an int32 table [B,
+// table_width] names each row's pages in order.  Key t of row b is row
+// t % block_k of page table[b][t / block_k]; a tile of keys never crosses a
+// page (the wrapper checks that block_k and the split's length are
+// multiples of the tile's rows), so a tile is still one bulk copy of K and
+// one of V.  The capacity is table_width * block_k, and the split plan, each
+// row group's keys in their order and the merges are the contiguous form's:
+// the outputs are the contiguous form's over the gathered copy, bit for
+// bit.  Like the contiguous form it reads keys up to each row's length only
+// (the whole table at cache_len 0).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -117,12 +130,22 @@ __host__ __device__ constexpr int pow2_at_least(int r) {
   return r <= 1 ? 1 : 2 * pow2_at_least((r + 1) / 2);
 }
 
-// keys of one tile: kTileBytes of rows, at most 64
-template <typename T, int D>
+// the largest power of two <= r (r >= 1)
+__host__ __device__ constexpr int pow2_at_most(int r) {
+  return r < 2 ? 1 : 2 * pow2_at_most(r / 2);
+}
+
+// keys of one tile: kTileBytes of rows, at most 64; the paged form's, a
+// power of two, so that pages of a multiple of 64 keys hold whole tiles (it
+// differs only at fp32 D 112: 32 keys, not 36).  A key's row group is its
+// offset in the split modulo the row groups, which divide either count, so
+// every row group sweeps the same keys in the same order in both forms.
+template <typename T, int D, bool Paged = false>
 __host__ __device__ constexpr int tile_rows() {
-  return kTileBytes / (D * (int)sizeof(T)) < 64
-             ? kTileBytes / (D * (int)sizeof(T))
-             : 64;
+  constexpr int rows = kTileBytes / (D * (int)sizeof(T)) < 64
+                           ? kTileBytes / (D * (int)sizeof(T))
+                           : 64;
+  return Paged ? pow2_at_most(rows) : rows;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -161,22 +184,26 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
 
 // part: per (bh, split) G*D acc, then G m, then G l (fp32); tickets: one
 // int per bh, 0 between launches.  len: one int (len_rows 1) or one per
-// batch row (len_rows B), row b = bh / kv_heads.
-template <typename T, int G, int D>
+// batch row (len_rows B), row b = bh / kv_heads.  Paged: k and v are the
+// pages' base, page p's head kv at p * page_stride + kv * block_k * D, and
+// table [B, table_width] holds each row's page ids (unused otherwise).
+template <typename T, int G, int D, bool Paged>
 __global__ void __launch_bounds__(kThreads)
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const int* __restrict__ len,
-                        T* __restrict__ out, float* __restrict__ lse,
-                        float* __restrict__ part, int* __restrict__ tickets,
-                        int s_cap, int split_keys, int n_split, int kv_heads,
-                        int len_rows, float scale) {
+                        const int* __restrict__ table, T* __restrict__ out,
+                        float* __restrict__ lse, float* __restrict__ part,
+                        int* __restrict__ tickets, int s_cap, int split_keys,
+                        int n_split, int kv_heads, int len_rows,
+                        int table_width, int block_k, long long page_stride,
+                        float scale) {
   constexpr int kVec = Slice<T>::kVec;
   constexpr int R = D / kVec;        // lanes that hold a slice of one key row
   constexpr int Rp = pow2_at_least(R);  // lanes of a row group, R padded
   constexpr bool kPadded = Rp != R;
   constexpr int kRowsPerWarp = 32 / Rp;
   constexpr int kGroups = kWarps * kRowsPerWarp;
-  constexpr int kRows = tile_rows<T, D>();
+  constexpr int kRows = tile_rows<T, D, Paged>();
   constexpr int kRowBytes = D * (int)sizeof(T);
   constexpr int kPart = G * (D + 2);  // floats of one partial
   static_assert(D % kVec == 0 && R >= 1 && Rp <= 32 && 32 % Rp == 0,
@@ -201,10 +228,6 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int t0 = split * split_keys;
   const int keys = max(0, min(t0 + split_keys, n) - t0);
   const int n_tiles = (keys + kRows - 1) / kRows;
-  const uint8_t* kb = reinterpret_cast<const uint8_t*>(
-      k + ((long long)bh * s_cap + t0) * D);
-  const uint8_t* vb = reinterpret_cast<const uint8_t*>(
-      v + ((long long)bh * s_cap + t0) * D);
   const uint32_t ring_s = smem_u32(ring);
   const uint32_t bar0 = smem_u32(full_bar);
 
@@ -213,16 +236,25 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  // tile i into stage i % kStages (thread 0)
+  // tile i into stage i % kStages (thread 0): keys t0 + i * kRows on, at
+  // element offset `at` of k and of v
   auto issue = [&](int i) {
     const int s = i % kStages;
+    const int t = t0 + i * kRows;
     const int bytes = min(kRows, keys - i * kRows) * kRowBytes;
+    long long at;
+    if constexpr (Paged) {
+      const int b = bh / kv_heads;
+      const int page = __ldg(table + (long long)b * table_width + t / block_k);
+      at = (long long)page * page_stride +
+           ((long long)(bh % kv_heads) * block_k + t % block_k) * D;
+    } else {
+      at = ((long long)bh * s_cap + t) * D;
+    }
     const uint32_t bar = bar0 + 8 * s;
     mbar_expect_tx(bar, 2 * bytes);
-    bulk_load(ring_s + s * 2 * kTileBytes, kb + (long long)i * kRows * kRowBytes,
-              bytes, bar);
-    bulk_load(ring_s + s * 2 * kTileBytes + kTileBytes,
-              vb + (long long)i * kRows * kRowBytes, bytes, bar);
+    bulk_load(ring_s + s * 2 * kTileBytes, k + at, bytes, bar);
+    bulk_load(ring_s + s * 2 * kTileBytes + kTileBytes, v + at, bytes, bar);
   };
   if (threadIdx.x == 0)
     for (int i = 0; i < min(kStages, n_tiles); ++i) issue(i);
@@ -449,14 +481,29 @@ int with_kernel(int dtype, int groups, int d_head, F&& f) {
   return (int)cudaErrorInvalidValue;
 }
 
-// The kernel for T, G, D, allowed its ring of shared memory on the current
-// device (err says whether that worked).
-template <typename T, int G, int D>
+// The kernel for T, G, D and its form, allowed its ring of shared memory on
+// the current device (err says whether that worked).
+template <typename T, int G, int D, bool Paged = false>
 auto ready(cudaError_t& err) {
-  auto kernel = decode_attention_kernel<T, G, D>;
+  auto kernel = decode_attention_kernel<T, G, D, Paged>;
   static unsigned allowed = 0;
   err = allow_smem(kernel, kRingBytes, allowed);
   return kernel;
+}
+
+// The checks both forms' launches share: an argument error, or 0.
+int check_plan(int batch, int kv_heads, int s_cap, int split_keys,
+               int n_split, int len_rows, const void* part,
+               const void* tickets) {
+  if (batch < 1 || kv_heads < 1 || s_cap < 1 || split_keys < 1 ||
+      (len_rows != 1 && len_rows != batch) ||
+      split_keys % 64 || n_split < 1 || n_split > 65535 ||
+      (long long)split_keys * n_split < s_cap ||
+      (n_split > 1 && (part == nullptr || tickets == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  if ((long long)batch * kv_heads > 0x7fffffffLL)
+    return (int)cudaErrorInvalidConfiguration;
+  return 0;
 }
 
 }  // namespace
@@ -479,25 +526,70 @@ int decode_attention_launch(const void* q, const void* k, const void* v,
                             int s_cap, int d_head, int split_keys, int n_split,
                             int dtype, int len_rows, float scale,
                             void* stream) {
-  if (batch < 1 || kv_heads < 1 || s_cap < 1 || split_keys < 1 ||
-      (len_rows != 1 && len_rows != batch) ||
-      split_keys % 64 || n_split < 1 || n_split > 65535 ||
-      (long long)split_keys * n_split < s_cap ||
-      (n_split > 1 && (part == nullptr || tickets == nullptr)))
-    return (int)cudaErrorInvalidValue;
-  const long long blocks = (long long)batch * kv_heads;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  const int bad = check_plan(batch, kv_heads, s_cap, split_keys, n_split,
+                             len_rows, part, tickets);
+  if (bad) return bad;
   return with_kernel(dtype, groups, d_head, [&](auto t, auto g, auto d) {
     using T = typename decltype(t)::type;
     cudaError_t err;
     auto kernel = ready<T, decltype(g)::value, decltype(d)::value>(err);
     if (err != cudaSuccess) return (int)err;
-    kernel<<<dim3((unsigned)blocks, n_split), kThreads, kRingBytes,
+    kernel<<<dim3((unsigned)(batch * kv_heads), n_split), kThreads, kRingBytes,
              (cudaStream_t)stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, (const int*)len, (T*)out,
-        (float*)lse, (float*)part, (int*)tickets, s_cap, split_keys, n_split,
-        kv_heads, len_rows, scale);
+        (const T*)q, (const T*)k, (const T*)v, (const int*)len, nullptr,
+        (T*)out, (float*)lse, (float*)part, (int*)tickets, s_cap, split_keys,
+        n_split, kv_heads, len_rows, 0, 1, 0LL, scale);
     return (int)cudaGetLastError();
+  });
+}
+
+// The paged form: k_pages and v_pages the pages' base (page p's KV head kv
+// at element p * page_stride + kv * block_k * d_head, each head's block_k
+// rows of d_head contiguous, 16-byte aligned), table int32 [batch,
+// table_width] of page ids on the device; the capacity is table_width *
+// block_k, and block_k and split_keys must be multiples of the tile's rows
+// (a tile reads one page).  The rest as decode_attention_launch.
+int decode_attention_paged_launch(const void* q, const void* k_pages,
+                                  const void* v_pages, const void* table,
+                                  const void* len, void* out, void* lse,
+                                  void* part, void* tickets, int batch,
+                                  int kv_heads, int groups, int table_width,
+                                  int block_k, long long page_stride,
+                                  int d_head, int split_keys, int n_split,
+                                  int dtype, int len_rows, float scale,
+                                  void* stream) {
+  if (table == nullptr || table_width < 1 || block_k < 1 || page_stride < 0)
+    return (int)cudaErrorInvalidValue;
+  const long long s_cap = (long long)table_width * block_k;
+  if (s_cap > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int bad = check_plan(batch, kv_heads, (int)s_cap, split_keys, n_split,
+                             len_rows, part, tickets);
+  if (bad) return bad;
+  return with_kernel(dtype, groups, d_head, [&](auto t, auto g, auto d) {
+    using T = typename decltype(t)::type;
+    constexpr int kD = decltype(d)::value;
+    constexpr int rows = tile_rows<T, kD, true>();
+    if (block_k % rows || split_keys % rows) return (int)cudaErrorInvalidValue;
+    cudaError_t err;
+    auto kernel = ready<T, decltype(g)::value, kD, true>(err);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<dim3((unsigned)(batch * kv_heads), n_split), kThreads, kRingBytes,
+             (cudaStream_t)stream>>>(
+        (const T*)q, (const T*)k_pages, (const T*)v_pages, (const int*)len,
+        (const int*)table, (T*)out, (float*)lse, (float*)part, (int*)tickets,
+        (int)s_cap, split_keys, n_split, kv_heads, len_rows, table_width,
+        block_k, page_stride, scale);
+    return (int)cudaGetLastError();
+  });
+}
+
+// Keys of one tile of the paged kernel for dtype and d_head, into *rows:
+// its block_k and split length must be multiples of it.  Returns 0 or an
+// argument error.
+int decode_attention_tile_rows(int dtype, int d_head, int* rows) {
+  return with_kernel(dtype, 1, d_head, [&](auto t, auto, auto d) {
+    *rows = tile_rows<typename decltype(t)::type, decltype(d)::value, true>();
+    return 0;
   });
 }
 

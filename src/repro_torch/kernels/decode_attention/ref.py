@@ -7,6 +7,11 @@ beyond ``cache_len`` set to ``-1e30`` (so ``cache_len = 0`` gives the mean
 of V over the whole capacity), the probabilities kept in fp32 for the
 ``p @ v`` product, and ``l`` clamped at ``1e-30``.  ``cache_len`` is one
 length for the whole batch or one per batch row.
+
+The paged form (:func:`decode_attention_paged_ref`) takes K and V as the
+serving pool's pages and a block table: a plain gather by the table into
+the contiguous layout, then the same math, so it equals the contiguous form
+over the gathered copy bit for bit.
 """
 
 from __future__ import annotations
@@ -15,7 +20,8 @@ import math
 
 import torch
 
-__all__ = ["NEG_INF", "decode_attention_ref"]
+__all__ = ["NEG_INF", "decode_attention_ref", "decode_attention_paged_ref",
+           "gather_pages"]
 
 NEG_INF = -1e30
 
@@ -42,3 +48,25 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     out = torch.einsum("bkgs,bksd->bkgd", p, v_cache.float()) / l
     lse = (m + torch.log(l))[..., 0]
     return out.reshape(B, H, D).to(q.dtype), lse.reshape(B, H)
+
+
+def gather_pages(pages: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """One layer's pages ``[num_blocks, KV, block_k, D]`` through the block
+    table ``[B, table_width]`` (page ids, any integer dtype) -> the
+    contiguous cache ``[B, KV, table_width * block_k, D]``: key t of row b
+    is row ``t % block_k`` of page ``table[b, t // block_k]``."""
+    B, W = table.shape
+    _, KV, bk, D = pages.shape
+    return (pages[table.long()].permute(0, 2, 1, 3, 4)
+            .reshape(B, KV, W * bk, D))
+
+
+def decode_attention_paged_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                               v_pages: torch.Tensor, table: torch.Tensor,
+                               cache_len):
+    """``q [B,H,D]``, ``k_pages``/``v_pages [num_blocks,KV,block_k,D]``, the
+    block table ``[B, table_width]`` and ``cache_len`` as in
+    :func:`decode_attention_ref`, over a capacity of ``table_width *
+    block_k`` -> ``(out [B,H,D] in q.dtype, lse [B,H] fp32)``."""
+    return decode_attention_ref(q, gather_pages(k_pages, table),
+                                gather_pages(v_pages, table), cache_len)

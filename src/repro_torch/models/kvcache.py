@@ -21,6 +21,13 @@ stack as a list of shards, ``[L, B, KV, S_loc, D]`` each, shard ``d`` the
 positions ``[d · S_loc, (d + 1) · S_loc)`` on the mesh's entry ``d``;
 :func:`kv_layer` and :func:`kv_capacity` read either form.
 
+A paged cache (the continuous-batching scheduler's step on one device)
+holds each growing ``k``/``v`` stack as a :class:`PagedKV`: the KV pool's
+pages ``[num_blocks, L, KV, block_k, D]``, the slots' block table and each
+slot's write row for the step, so that a layer writes its new K and V
+straight to the page and attention reads the pages through the table
+(``transformer._decode_attn``); no contiguous copy of the cache is made.
+
 Unlike the reference's functional ``dynamic_update_slice``, the updates
 here write into the cache in place: a full-size cache is hundreds of MB,
 and copying it every step would cost more than the step.
@@ -28,7 +35,8 @@ and copying it every step would cost more than the step.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+import dataclasses
+from typing import Any, Callable, Dict, Tuple
 
 import torch
 
@@ -36,7 +44,7 @@ from repro_torch.core.backends import KVCacheLayout
 
 Cache = Dict[str, torch.Tensor]
 
-__all__ = ["KVCacheLayout", "init_attn_cache", "pad_kv_to_layout",
+__all__ = ["KVCacheLayout", "PagedKV", "init_attn_cache", "pad_kv_to_layout",
            "update_layer_kv", "seq_axis_tree", "kv_layer", "kv_capacity",
            "check_kv_capacity"]
 
@@ -108,23 +116,66 @@ def update_layer_kv(cache: Cache, layer: int, k_new: torch.Tensor,
     return cache
 
 
+@dataclasses.dataclass
+class PagedKV:
+    """A growing K or V stack left in the KV pool's pages.
+
+    ``pages``: ``[num_blocks, L, KV, block_k, D]`` for the stack, or one
+    layer's ``[num_blocks, KV, block_k, D]`` (:func:`kv_layer`); a view of
+    the pool's buffer, each page's head a contiguous ``block_k x D`` run.
+    ``table``: int32 ``[B, table_width]``, row b's pages in order, so key t
+    of row b is row ``t % block_k`` of page ``table[b, t // block_k]`` and
+    the capacity is ``table_width * block_k``.  ``rows``: ``(page,
+    offset)``, two int64 ``[B]`` tensors, where row b writes this step's
+    token (the pool's ``write_rows``: an inactive slot's page is the
+    sink).  ``scatter(pages, new, rows)`` writes ``new [B, KV, D]`` there in
+    place: the pool's ``scatter_token``, so the pool stays the only writer
+    of its pages."""
+
+    pages: torch.Tensor
+    table: torch.Tensor
+    rows: Tuple[torch.Tensor, torch.Tensor]
+    scatter: Callable[..., Any]
+
+    @property
+    def capacity(self) -> int:
+        return int(self.table.shape[1]) * int(self.pages.shape[-2])
+
+    def layer(self, i: int) -> "PagedKV":
+        return dataclasses.replace(self, pages=self.pages[:, i])
+
+    def write(self, new: torch.Tensor) -> None:
+        """Row b's ``new[b] [KV, D]`` (in the pages' dtype) at its write
+        row, in place."""
+        self.scatter(self.pages, new.to(self.pages.dtype), self.rows)
+
+
 def kv_layer(stack, i: int):
     """Layer ``i`` of a KV stack: ``[B, KV, S, D]`` of a tensor, the list
-    of each shard's ``[B, KV, S_loc, D]`` of a sharded stack."""
+    of each shard's ``[B, KV, S_loc, D]`` of a sharded stack, the layer's
+    pages of a :class:`PagedKV`."""
     if isinstance(stack, torch.Tensor):
         return stack[i]
+    if isinstance(stack, PagedKV):
+        return stack.layer(i)
     return [s[i] for s in stack]
 
 
 def kv_capacity(stack) -> int:
-    """The global sequence capacity of a KV stack, sharded or not."""
+    """The global sequence capacity of a KV stack, sharded, paged or
+    neither."""
     if isinstance(stack, torch.Tensor):
         return int(stack.shape[3])
+    if isinstance(stack, PagedKV):
+        return stack.capacity
     return sum(int(s.shape[3]) for s in stack)
 
 
 def check_kv_capacity(layout: KVCacheLayout, stack) -> None:
     """``layout.check_capacity`` of the capacity a decode backend sees:
     the whole stack's, or each shard's of a sharded stack."""
+    if isinstance(stack, PagedKV):
+        layout.check_capacity(stack.capacity)
+        return
     for s in ([stack] if isinstance(stack, torch.Tensor) else stack):
         layout.check_capacity(int(s.shape[3]))

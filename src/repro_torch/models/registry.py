@@ -62,6 +62,9 @@ class ModelApi:
     # carry their state through every position, and the encdec family's
     # prefill has not been examined, so they keep the unpadded one
     prefill_pads: bool = False
+    # the attention backend every decode step uses (None for ssm): the
+    # scheduler asks it whether its step can read the KV pool's pages
+    attn: Any = None
 
 
 def get_model(cfg: ModelConfig, attn_backend=None) -> ModelApi:
@@ -111,6 +114,7 @@ def get_model(cfg: ModelConfig, attn_backend=None) -> ModelApi:
             cache_seq_axes=moe.cache_seq_axes,
             ref_leaves=moe.ref_leaves,
             prefill_pads=cfg.moe_capacity_factor is None,
+            attn=attn,
         )
     if fam == "hybrid":
         return ModelApi(
@@ -124,6 +128,7 @@ def get_model(cfg: ModelConfig, attn_backend=None) -> ModelApi:
                 p, t, c, cfg, attn_backend=attn, **kw),
             cache_seq_axes=hybrid.cache_seq_axes,
             ref_leaves=lambda p: hybrid.ref_leaves(cfg, p),
+            attn=attn,
         )
     if fam == "encdec":
         return ModelApi(
@@ -137,6 +142,7 @@ def get_model(cfg: ModelConfig, attn_backend=None) -> ModelApi:
                 p, t, c, cfg, attn_backend=attn, **kw),
             cache_seq_axes=encdec.cache_seq_axes,
             ref_leaves=encdec.ref_leaves,
+            attn=attn,
         )
     extra = (lambda b: b["extra_embeds"]) if fam == "vlm" else (lambda b: None)
     return ModelApi(
@@ -153,6 +159,7 @@ def get_model(cfg: ModelConfig, attn_backend=None) -> ModelApi:
         cache_seq_axes=transformer.cache_seq_axes,
         ref_leaves=transformer.ref_leaves,
         prefill_pads=True,
+        attn=attn,
     )
 
 

@@ -30,6 +30,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.backends import KVCacheLayout, get_backend
 from repro_torch.core.spans import span
+from repro_torch.kernels.decode_attention.ref import gather_pages
 from repro_torch.models import layers as L
 from repro_torch.models import param_tree as PT
 from repro_torch.models.attention import (
@@ -39,6 +40,7 @@ from repro_torch.models.attention import (
     sharded_decode_attend,
 )
 from repro_torch.models.kvcache import (
+    PagedKV,
     check_kv_capacity,
     init_attn_cache,
     kv_capacity,
@@ -323,8 +325,23 @@ def _decode_attn(attn, q, k, v, k_cache, v_cache, at, cache_len,
     position ``cache_len - 1``, each shard runs the backend's split-KV
     form over its slice and the partials merge by lse
     (:func:`repro_torch.models.attention.sharded_decode_attend`).
+
+    With ``k_cache``/``v_cache`` a layer of a :class:`PagedKV` (the
+    scheduler's step on one device), the token goes straight to each row's
+    page (the leaf's write rows; ``at`` is not read), then the backend's
+    paged form (``decode_paged``) reads the pages through the block table;
+    a backend without one (the plain oracles) attends over this layer's
+    pages gathered by the table.
     Returns o [B, 1, H, D]."""
     B, _, KV, D = k.shape
+    if isinstance(k_cache, PagedKV):
+        k_cache.write(k.reshape(B, KV, D))
+        v_cache.write(v.reshape(B, KV, D))
+        if hasattr(attn, "decode_paged"):
+            return attn.decode_paged(q, k_cache, v_cache, cache_len)
+        return attn.decode(q, gather_pages(k_cache.pages, k_cache.table),
+                           gather_pages(v_cache.pages, v_cache.table),
+                           cache_len)
     if seq_shard_axes is not None:
         o, _, _ = sharded_decode_attend(
             attn, q, k.reshape(B, KV, 1, D), v.reshape(B, KV, 1, D),

@@ -12,14 +12,21 @@ existing blocks.  This module turns that alignment into an allocator:
   contiguous to the decode step).
 * :class:`KVBlockPool`: the device side, one buffer per *growing* KV leaf
   of the family cache (``ModelApi.cache_seq_axes`` classifies leaves), laid
-  out ``[num_blocks, block_k, *rest, D]`` where one slot's leaf is
-  ``[*rest, S, D]`` (``rest = (L, 1, KV)`` for the dense family).
-  ``gather`` rebuilds the slots' contiguous caches from block tables in one
-  indexing kernel, straight into the decode kernel's layout ``[L, slots,
-  KV, S_slot, D]`` (or, split over D sequence shards, shard-major ``[D, L,
-  slots, KV, S_slot / D, D]``: each shard one contiguous block of the
-  same buffer, from the same one kernel); ``scatter_token`` writes each
-  slot's newly decoded K and V back to its physical page.
+  out ``[num_blocks, *rest, block_k, D]`` where one slot's leaf is
+  ``[*rest, S, D]`` (``rest = (L, 1, KV)`` for every family), so one page's
+  run of one layer and KV head is contiguous (``block_k x D``).  On one
+  device the scheduler's step reads and writes the pages where they are:
+  :meth:`KVBlockPool.paged` hands the family's ``decode_step`` each leaf as
+  a ``models.kvcache.PagedKV`` (the pages, the block table and each slot's
+  write row from :meth:`KVBlockPool.write_rows`), each layer writes its new
+  K and V to its page (:meth:`KVBlockPool.scatter_token`) and the decode
+  kernel's paged form reads the pages through the table (a backend
+  without one gathers each layer's pages by the table).  Over a mesh
+  ``gather`` still rebuilds the slots' contiguous caches from the block
+  tables in one indexing kernel, shard-major ``[D, L, slots, KV, S_slot /
+  D, D]`` (each shard one contiguous block of the same buffer), and
+  ``scatter_token`` writes each slot's new K and V (read back with
+  ``chunks_at``) to its page.
 
 Trees are nested dicts and lists (the moe cache's ``stacks``) whose leaves
 are tensors, with ``None`` at the leaves a half does not hold
@@ -59,6 +66,7 @@ import torch
 
 from repro_torch.core.backends import KVCacheLayout
 from repro_torch.core.spans import span
+from repro_torch.models.kvcache import PagedKV
 
 Tree = Any
 
@@ -161,18 +169,11 @@ def _arange(n: int, device: torch.device) -> torch.Tensor:
     return torch.arange(n, device=device)
 
 
-def _flat(buf: torch.Tensor) -> torch.Tensor:
-    """A page buffer ``[nb, bk, L, 1, *mid, D]`` as ``[nb * bk, L, M, D]``
-    (one row per token slot of every page, ``M = prod(mid)``)."""
-    nb, bk, L = buf.shape[:3]
-    return buf.view(nb * bk, L, math.prod(buf.shape[4:-1]), buf.shape[-1])
-
-
 def _words(t: torch.Tensor) -> torch.Tensor:
     """``t`` with its last dim reinterpreted as int64 words where its bytes
     allow: a gather then moves the same bits as a quarter (bf16) or half
     (fp32) as many elements, which the card's indexing kernel copies
-    faster (``chip_smoke.py``'s ``[sweep] gather`` line times both)."""
+    faster."""
     if t.element_size() < 8 and t.shape[-1] * t.element_size() % 8 == 0:
         return t.view(torch.int64)
     return t
@@ -183,12 +184,12 @@ class KVBlockPool:
     """Device-side paged storage for the growing KV leaves of one family.
 
     ``buffers`` mirrors the cache tree with ``None`` at slot-resident
-    leaves; each paged leaf is ``[num_blocks, block_k, L, 1, *mid, D]`` for
+    leaves; each paged leaf is ``[num_blocks, L, 1, *mid, block_k, D]`` for
     one slot's leaf ``[L, 1, *mid, S, D]`` (the batch axis second, as every
     cache leaf of the port has it; seq axis -2).  ``table_width`` fixes the
     block-table width (``S_slot = table_width * block_k`` is the capacity
-    every gathered cache has), so admission and retirement never change a
-    shape the decode step sees.
+    every slot has), so admission and retirement never change a shape the
+    decode step sees.
     """
 
     layout: KVCacheLayout
@@ -218,8 +219,8 @@ class KVBlockPool:
             s = leaf.shape[-2]
             layout.check_capacity(s)
             widths.add(s // bk)
-            rest = tuple(leaf.shape[:-2]) + tuple(leaf.shape[-1:])
-            return torch.zeros((num_blocks, bk) + rest, dtype=leaf.dtype,
+            return torch.zeros((num_blocks,) + tuple(leaf.shape[:-2])
+                               + (bk, leaf.shape[-1]), dtype=leaf.dtype,
                                device=leaf.device)
 
         buffers = tree_map(mk, seq_axes, slot_cache_template)
@@ -257,9 +258,10 @@ class KVBlockPool:
             def write(ax, buf, leaf):
                 if ax is None:
                     return buf
-                # [*rest, S, D] -> per-page chunks [n, bk, *rest, D]
-                x = leaf.movedim(-2, 0)[: n * bk]
-                x = x.reshape((n, bk) + tuple(x.shape[1:]))
+                # [*rest, S, D] -> per-page chunks [n, *rest, bk, D]
+                x = leaf[..., : n * bk, :]
+                x = x.reshape(tuple(x.shape[:-2]) + (n, bk, x.shape[-1]))
+                x = x.movedim(-3, 0)
                 with span("kv_pool.sync"):
                     idx = torch.tensor(ids, dtype=torch.long,
                                        device=buf.device)
@@ -275,44 +277,100 @@ class KVBlockPool:
         entries; the rest are null padding)."""
         self.allocator.free([int(b) for b in table[:n_blocks]])
 
-    # -- device-side gather / scatter (inside the fixed-shape step) -------
+    # -- device-side step: paged leaves, writes, gather (inside the graph) --
+
+    def write_rows(self, tables: torch.Tensor, positions: torch.Tensor,
+                   active: torch.Tensor):
+        """Where each slot writes the token at ``positions[slot]``: ``(page,
+        offset)``, two int64 ``[slots]`` tensors, the page from the slot's
+        row of ``tables`` (int ``[slots, table_width]``) and the offset in
+        it.  Inactive slots are redirected to the sink page so they can
+        never touch a re-allocated one; their block index is clipped to the
+        table, as their (discarded) positions grow past it.  Two active
+        slots never collide (they own disjoint pages); sink collisions are
+        harmless because the sink is never read by an active slot."""
+        bk = self.block_k
+        slots, width = tables.shape
+        pos = positions.long()
+        block_ix = (pos // bk).clamp(0, width - 1)
+        page = tables[_arange(slots, tables.device), block_ix].long()
+        page = torch.where(active, page, SINK_BLOCK)
+        return page, pos % bk
+
+    def paged(self, tables: torch.Tensor, rows) -> Tree:
+        """The paged half of the cache tree for a batch of the slots, left
+        in the pages: each leaf a ``PagedKV`` over its buffer (``[num_blocks,
+        L, *mid, block_k, D]``, the batch axis dropped), the int32 block
+        table ``tables [slots, table_width]`` and the step's write rows
+        (:meth:`write_rows`), written through :meth:`scatter_token`."""
+        return tree_map(
+            lambda ax, buf: None if ax is None else PagedKV(
+                pages=buf.select(2, 0), table=tables, rows=rows,
+                scatter=self.scatter_token),
+            self.seq_axes, self.buffers)
+
+    def scatter_token(self, buffers, chunks, rows):
+        """Write each slot's newly decoded K and V to its page, in place, at
+        ``rows`` (:meth:`write_rows`); returns ``buffers``.
+
+        ``buffers`` is the pool's tree with ``chunks`` a paged tree of
+        ``[L, slots, *mid, D]`` leaves (the step's write, from
+        :meth:`chunks_at`), or one layer's pages ``[num_blocks, *mid,
+        block_k, D]`` of a ``PagedKV`` with ``chunks`` ``[slots, *mid, D]``
+        (the layer's write inside the step)."""
+        if isinstance(buffers, torch.Tensor):
+            _put(buffers, chunks, rows)
+            return buffers
+
+        def s(ax, buf, chunk):
+            if ax is not None:
+                _put(buf.select(2, 0), chunk.movedim(1, 0), rows)
+            return buf
+
+        tree_map(s, self.seq_axes, buffers, chunks)
+        return buffers
 
     def gather(self, buffers: Tree, tables: torch.Tensor,
                shards: int = 0) -> Tree:
         """Rebuild contiguous per-slot caches from block tables.
 
-        ``tables``: int64 ``[slots, table_width]`` on the pool's device.
+        ``tables``: int ``[slots, table_width]`` on the pool's device.
         Returns the paged half of the cache tree for a batch of the slots:
         ``[L, slots, *mid, S_slot, D]`` per leaf, the layout the decode
-        kernel reads, made by one indexing kernel (no transpose after it).
-        With ``shards`` = D >= 1, the S axis split into D sequence shards,
-        shard-major: ``[D, L, slots, *mid, S_slot / D, D]``, shard ``d``
-        holding positions ``[d · S_slot / D, (d + 1) · S_slot / D)``, so
-        each shard's ``[L, slots, *mid, S_slot / D, D]`` is one contiguous
-        block (the decode kernel takes it as it is), from the same one
-        kernel and the same bytes.  Launches kernels only: no host sync, so
-        a CUDA graph can hold it.
+        kernel's contiguous form reads, made by one indexing kernel (no
+        transpose after it).  With ``shards`` = D >= 1, the S axis split
+        into D sequence shards, shard-major: ``[D, L, slots, *mid, S_slot /
+        D, D]``, shard ``d`` holding positions ``[d · S_slot / D, (d + 1) ·
+        S_slot / D)``, so each shard's ``[L, slots, *mid, S_slot / D, D]`` is
+        one contiguous block (the decode kernel takes it as it is), from the
+        same one kernel and the same bytes.  Launches kernels only: no host
+        sync, so a CUDA graph can hold it.
         """
         bk = self.block_k
-        slots = tables.shape[0]
-        S = self.table_width * bk
+        slots, width = tables.shape
+        S = width * bk
         n = max(1, int(shards))
         if S % n:
             raise ValueError(f"a capacity of {S} does not split into "
                              f"{n} sequence shards")
+        dev = tables.device
+
+        def shard_major(x):   # [slots, S] -> [n, 1, slots, 1, S/n], contiguous
+            return x.reshape(slots, n, S // n).transpose(0, 1).reshape(
+                n, 1, slots, 1, S // n).contiguous()
+
+        page = shard_major(tables.long()[:, :, None].expand(slots, width, bk))
+        off = shard_major((_arange(S, dev) % bk).expand(slots, S))
 
         def g(ax, buf):
             if ax is None:
                 return None
-            flat = _words(_flat(buf))                # [nb*bk, L, M, D']
-            L, M = flat.shape[1:3]
-            dev = buf.device
-            rows = (tables[:, :, None] * bk + _arange(bk, dev)).reshape(
-                slots, n, S // n).transpose(0, 1).reshape(
-                n, 1, slots, 1, S // n).contiguous()  # [n, 1, slots, 1, S/n]
-            out = flat[rows, _arange(L, dev).view(1, L, 1, 1, 1),
-                       _arange(M, dev).view(1, 1, 1, M, 1)].view(buf.dtype)
-            shape = ((L, slots) + tuple(buf.shape[4:-1])
+            nb, L = buf.shape[:2]
+            M = math.prod(buf.shape[3:-2])
+            src = _words(buf.view(nb, L, M, bk, buf.shape[-1]))
+            out = src[page, _arange(L, dev).view(1, L, 1, 1, 1),
+                      _arange(M, dev).view(1, 1, 1, M, 1), off].view(buf.dtype)
+            shape = ((L, slots) + tuple(buf.shape[3:-2])
                      + (S // n, buf.shape[-1]))
             return out.view((n,) + shape) if shards else out.view(shape)
 
@@ -354,40 +412,9 @@ class KVBlockPool:
 
         return tree_map(one, self.seq_axes, paged)
 
-    def scatter_token(self, buffers: Tree, chunks: Tree, tables: torch.Tensor,
-                      positions: torch.Tensor, active: torch.Tensor) -> Tree:
-        """Write each slot's newly decoded K and V to its physical page, in
-        place; returns ``buffers``.
 
-        ``chunks``: paged tree with leaves ``[L, slots, *mid, D]`` (the
-        step's write at ``positions[slot]``, from :meth:`chunks_at`).
-        Inactive slots are redirected to the sink page so they can never
-        touch a re-allocated one.  Two active slots never collide (they own
-        disjoint pages); sink collisions are harmless because the sink is
-        never read.
-        """
-        if self.table_width == 0:
-            return buffers
-        bk = self.block_k
-        slots, width = tables.shape
-        dev = tables.device
-        pos = positions.long()
-        # Clip so a vacant slot's (discarded) position can't index past the
-        # table; active positions are < capacity by allocation.
-        block_ix = (pos // bk).clamp(0, width - 1)
-        page = tables[_arange(slots, dev), block_ix]
-        page = torch.where(active, page, SINK_BLOCK)
-        row = (page * bk + pos % bk).view(1, slots, 1)
-
-        def s(ax, buf, chunk):
-            if ax is None:
-                return buf
-            flat = _flat(buf)
-            L, M, D = flat.shape[1], flat.shape[2], flat.shape[3]
-            flat.index_put_((row, _arange(L, dev).view(L, 1, 1),
-                             _arange(M, dev).view(1, 1, M)),
-                            chunk.reshape(L, slots, M, D).to(buf.dtype))
-            return buf
-
-        tree_map(s, self.seq_axes, buffers, chunks)
-        return buffers
+def _put(pages: torch.Tensor, new: torch.Tensor, rows) -> None:
+    """``new [slots, *lead, D]`` into ``pages [num_blocks, *lead, block_k,
+    D]`` at each slot's ``rows`` = (page, offset), in place."""
+    page, offset = rows
+    pages[page, ..., offset, :] = new.to(pages.dtype)

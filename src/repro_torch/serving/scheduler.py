@@ -10,9 +10,9 @@ stream instead, with admission control:
   :class:`torch.cuda.CUDAGraph` and replayed every step (``captures`` stays
   at 1 over the scheduler's life, the port's form of the reference's
   ``_step_fn._cache_size() == 1``); on the CPU the same step runs eagerly;
-* per-slot caches rebuilt each step from the :class:`KVBlockPool` via block
-  tables, so a request's pages are scattered physically but contiguous
-  logically (defrag-free reuse);
+* per-slot caches read each step from the :class:`KVBlockPool`'s pages
+  through block tables, so a request's pages are scattered physically but
+  contiguous logically (defrag-free reuse);
 * per-slot ``length``: the step runs the family's ``decode_step`` over all
   slots at once with one length per slot (``cache["length"]`` of shape
   ``[slots]``, and the encdec family's ``src_length`` likewise), where the
@@ -49,12 +49,19 @@ stream instead, with admission control:
   sharded_decode_attend``).  The slot capacity must split into D whole
   ``block_k`` blocks; a capacity that does not raises.
 
-The step is gather, ``decode_step``, the write of each slot's new K and V
-to its page (an inactive slot's to the sink page), then argmax.  No
-operation in it synchronises with the host, and outputs that it makes as
-new tensors (``length + 1``, the logits, the next tokens) are copied into
-the scheduler's own tensors, which the graph holds.  Only admission and
-retirement upload the block tables and the active mask.  The tokens each
+On one device the step is the slots' write rows (each slot's page from its
+block table and the offset in it, an inactive slot's on the sink page),
+then ``decode_step`` over the pool's pages (``KVBlockPool.paged``: each
+layer writes its new K and V to its page and attention reads the pages
+through the table, ``transformer._decode_attn``), then argmax; the step
+makes no contiguous copy of the cache.  Over a mesh the step is the pool's
+gather into contiguous shards, ``decode_step``, the write of each slot's
+new K and V to its page, then argmax; ``gather_steps`` counts the steps
+that gathered.  No operation in the step synchronises with the host, and
+outputs that it makes as new tensors (``length + 1``, the logits, the next
+tokens) are copied into the scheduler's own tensors, which the graph
+holds.  Only admission and retirement upload the block tables and the
+active mask.  The tokens each
 step emits stay on the device until the stream ends.  Each step's launch,
 admission and retirement run under the spans ``scheduler.step``,
 ``scheduler.admit`` and ``scheduler.retire``, each copy to the card that
@@ -170,7 +177,7 @@ class RequestScheduler:
     ``model`` is a :class:`repro_torch.models.registry.ModelApi` and
     ``params`` its module.  ``slot_capacity`` is the per-slot cache
     capacity: every admitted request prefills (``model.prefill``) at it, so
-    gathered shapes are constant; it must be a ``layout.block_k``
+    the step's shapes are constant; it must be a ``layout.block_k``
     multiple.  ``num_blocks=None`` sizes the pool for full occupancy
     (every slot holding a maximal request) plus the two reserved pages.
 
@@ -271,11 +278,13 @@ class RequestScheduler:
         self._tables = np.zeros((S, self.pool.table_width), np.int32)
         self._active = np.zeros((S,), bool)
         self._tables_dev = torch.zeros((S, self.pool.table_width),
-                                       dtype=torch.long, device=self.device)
+                                       dtype=torch.int32, device=self.device)
         self._active_dev = torch.zeros((S,), dtype=torch.bool,
                                        device=self.device)
         self._slots: List[Optional[_Slot]] = [None] * S
         self.steps_run = 0          # decode steps executed (utilization)
+        self.gather_steps = 0       # of them, the steps that ran the pool's gather
+        self._gathers = self.mesh is not None and self.pool.table_width > 0
         self.tokens_emitted = 0
         self.captures = 0           # CUDA graphs captured: 1 on CUDA, 0 eager
         self._graph: Optional[torch.cuda.CUDAGraph] = None
@@ -320,31 +329,43 @@ class RequestScheduler:
         """One decode step over every slot, reading and writing only the
         scheduler's own tensors and the pool's pages."""
         state, pool = self._state, self.pool
-        positions = state["length"].clone()                  # [slots]
-        kw = {}
         if self.mesh is None:
-            paged = pool.gather(pool.buffers, self._tables_dev)
-        else:
-            devices = self._seq_mesh.flat()
-            paged = tree_map(
-                lambda ax, leaf: None if ax is None else [
-                    t.to(d) for t, d in zip(leaf.unbind(0), devices)],
-                self.seq_axes,
-                pool.gather(pool.buffers, self._tables_dev,
-                            shards=len(devices)))
-            kw["seq_shard_axes"] = self._seq_mesh
+            rows = (pool.write_rows(self._tables_dev, state["length"],
+                                    self._active_dev)
+                    if pool.table_width else None)
+            cache = merge_cache(pool.paged(self._tables_dev, rows), state,
+                                self.seq_axes)
+            logits, new_cache = self.model.decode_step(self.params,
+                                                       self._tokens, cache)
+            self._keep(logits, split_cache(new_cache, self.seq_axes)[1])
+            return
+        positions = state["length"].clone()                  # [slots]
+        devices = self._seq_mesh.flat()
+        paged = tree_map(
+            lambda ax, leaf: None if ax is None else [
+                t.to(d) for t, d in zip(leaf.unbind(0), devices)],
+            self.seq_axes,
+            pool.gather(pool.buffers, self._tables_dev, shards=len(devices)))
         cache = merge_cache(paged, state, self.seq_axes)
-        logits, new_cache = self.model.decode_step(self.params, self._tokens,
-                                                   cache, **kw)
+        logits, new_cache = self.model.decode_step(
+            self.params, self._tokens, cache, seq_shard_axes=self._seq_mesh)
         new_paged, new_state = split_cache(new_cache, self.seq_axes)
-        pool.scatter_token(pool.buffers, pool.chunks_at(new_paged, positions),
-                           self._tables_dev, positions, self._active_dev)
+        if pool.table_width:  # an attention-free family pages nothing
+            pool.scatter_token(pool.buffers,
+                               pool.chunks_at(new_paged, positions),
+                               pool.write_rows(self._tables_dev, positions,
+                                               self._active_dev))
+        self._keep(logits, new_state)
+
+    def _keep(self, logits: torch.Tensor, new_state) -> None:
+        """The step's outputs into the scheduler's own tensors: the
+        slot-resident state, the logits and the next tokens (argmax)."""
 
         def keep(ax, old, new):
             if ax is None and new is not old:
                 old.copy_(new)
 
-        tree_map(keep, self.seq_axes, state, new_state)
+        tree_map(keep, self.seq_axes, self._state, new_state)
         self._logits.copy_(logits[:, -1])
         self._tokens.copy_(logits[:, -1:].argmax(dim=-1))
 
@@ -578,6 +599,7 @@ class RequestScheduler:
             else:
                 around_step(self._launch_step)
             self.steps_run += 1
+            self.gather_steps += self._gathers
             for slot, st in enumerate(self._slots):
                 if st is None:
                     continue

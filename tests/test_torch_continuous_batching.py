@@ -287,11 +287,12 @@ class TestBlockAllocatorProperties:
         chunks = {"k": torch.full((1, 1, 2, 3), -7.0),   # [L, slots, KV, D]
                   "v": torch.full((1, 1, 2, 3), -7.0), "length": None}
         tables = torch.as_tensor(table[None], dtype=torch.long)
-        pool.scatter_token(pool.buffers, chunks, tables,
-                           torch.tensor([5], dtype=torch.int32),
-                           torch.tensor([False]))
+        pool.scatter_token(pool.buffers, chunks, pool.write_rows(
+            tables, torch.tensor([5], dtype=torch.int32),
+            torch.tensor([False])))
         assert torch.equal(pool.buffers["k"][owned], before)
-        assert bool((pool.buffers["k"][SINK_BLOCK, 1] == -7.0).all())
+        # position 5 is offset 1 of a page [L, 1, KV, block_k, D]
+        assert bool((pool.buffers["k"][SINK_BLOCK, ..., 1, :] == -7.0).all())
         assert bool((pool.buffers["k"][0] == 0).all())   # null page
 
 
@@ -365,7 +366,8 @@ class TestBlockTableRoundTrip:
                                            .astype(np.float32)),
                      "v": torch.zeros((1, 1, 2, 4)), "length": None}
             p = torch.tensor([pos], dtype=torch.int32)
-            pool.scatter_token(pool.buffers, chunk, tables, p, torch.tensor([True]))
+            pool.scatter_token(pool.buffers, chunk, pool.write_rows(
+                tables, p, torch.tensor([True])))
             got = pool.gather(pool.buffers, tables)
             assert torch.equal(got["k"][:, :, :, pos], chunk["k"])
             assert torch.equal(pool.chunks_at(got, p)["k"], chunk["k"])

@@ -68,8 +68,8 @@ def main(argv=None) -> int:
                       out.float().norm(dim=-1).mean().item()))
         return out, m
 
-    def recorded(logits, k):
-        w, idx = route_topk(logits, k)
+    def recorded(logits, k, normalize=True):
+        w, idx = route_topk(logits, k, normalize)
         routes.append(idx.sort(dim=-1).values)
         return w, idx
 
